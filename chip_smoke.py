@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (esvio_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # all phases, one card
+
+It builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
+against its plain PyTorch version on the card, drives the ESIO pipeline
+(stereo events + IMU -> trajectory) through `Pipeline.run` at the golden
+and at the bench size, times the event front end at DAVIS346 and DSEC size,
+and checks every result.  One line per phase, then a JSON line with the
+kernels, then as the last line
+
+    {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
+
+Any failed check raises, so the script exits non-zero and prints no last
+line; it also exits non-zero when no CUDA device is visible or when the
+port's package is not beside it.  It imports neither jax nor esvio_tpu:
+the synthetic sequences come from tests/synth_np.py (numpy only).
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_NPZ = os.path.join(ROOT, "tests", "golden", "esio_planar_rot.npz")
+
+# Max position deviation from the golden trajectory once yaw and translation,
+# the four degrees of freedom VIO cannot observe, are aligned onto it: the
+# golden test's 0.05 m (tests/test_golden_trace.py:83).  Unaligned, the
+# port's own front end misses it: float32 rounding flips single features,
+# the stereo initialization fixes another gauge and every later pose carries
+# it (PERF.md, "Golden gates").  The NON_LINEAR stamps and the ATE gate are
+# the golden test's own (tests/test_golden_trace.py:78-86).
+GOLDEN_MAX_DEV_M = 0.05
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def _timed(fn, reps, warmup=3):
+    """Mean ms of fn() over `reps` launches, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------- phase 1
+def phase_device():
+    import torch
+    from esvio_tpu_torch import _kernels
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    secs = _kernels.build(force=True)
+    _kernels.lib()
+    log(f"phase 1 device: ok, kernels built by nvcc in {secs:.1f} s "
+        f"({', '.join(_kernels.SOURCES)})")
+
+
+# ---------------------------------------------------------------- phase 2
+def _texture(H, W, seed):
+    """Binary blobs: smoothed noise thresholded at its upper quartile."""
+    import numpy as np
+    noise = np.random.default_rng(seed).normal(0, 1, (H, W))
+    k = np.ones(7) / 7.0
+    for ax in (0, 1):
+        noise = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), ax, noise)
+    return (noise > np.percentile(noise, 75)).astype(np.float32)
+
+
+def _sae_from_events(H, W, device, seed, steps=24):
+    """A realistic SAE: blobs of a texture translating over the sensor,
+    their edge events fed through update_sae on the card."""
+    import numpy as np
+    from esvio_tpu_torch.events import sae as sae_mod
+    rng = np.random.default_rng(seed)
+    pad = 2 * steps + 8
+    tex = _texture(H + pad, W + pad, seed)
+    state = sae_mod.init_sae(H, W, device)
+    t = 1.0
+    prev = tex[:H, :W]
+    for s in range(1, steps):
+        cur = tex[s:s + H, 2 * s:2 * s + W]
+        yy, xx = np.nonzero(cur != prev)
+        pol = (cur[yy, xx] > prev[yy, xx]).astype(np.int32)
+        order = rng.permutation(len(yy))
+        ts = np.sort(rng.uniform(t, t + 0.004, len(yy)))
+        ch = sae_mod.chunk_from_arrays(ts, xx[order], yy[order], pol[order],
+                                       capacity=max(len(yy), 1),
+                                       device=device)
+        state, _ = sae_mod.update_sae(state, ch, 0.01)
+        prev = cur
+        t += 0.005
+    return state
+
+
+def phase_corner_mask(device, shapes, main_shape):
+    import torch
+    from esvio_tpu_torch.events import corners
+    rows = {}
+    for H, W in shapes:
+        st = _sae_from_events(H, W, device, seed=H * W)
+        got = corners.corner_mask_cuda(st.sae)
+        want = corners.corner_mask_plain(st.sae)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        n_corner = int(want.sum())
+        if n_diff or n_corner == 0:
+            raise AssertionError(f"K1 at (2, {H}, {W}): {n_diff} pixels differ "
+                                 f"from the plain version, {n_corner} corners")
+        ms = _timed(lambda: corners.corner_mask_cuda(st.sae), reps=200)
+        plain_ms = _timed(lambda: corners.corner_mask_plain(st.sae), reps=20)
+        rows[(H, W)] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+        log(f"  K1 corner_mask (2, {H}, {W}): equal everywhere, {n_corner} "
+            f"corner pixels; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+    log("phase 2 corner mask K1: ok")
+    return rows[main_shape]
+
+
+# ---------------------------------------------------------------- phase 3
+def _spd_problem(seed, n_sys, n=190, jitter=50.0):
+    """The SPD systems of tests/test_chol_pallas.py, with float64 answers."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    G = rng.normal(0, 1, (n_sys, n, n)).astype(np.float32)
+    A = np.einsum("bij,bkj->bik", G, G) + jitter * np.eye(n, dtype=np.float32)
+    b = rng.normal(0, 1, (n_sys, n)).astype(np.float32)
+    lam = np.geomspace(1e-4, 10.0, n_sys).astype(np.float32)
+    x_ref = np.stack([np.linalg.solve(
+        (A[i] + lam[i] * np.eye(n)).astype(np.float64), b[i].astype(np.float64))
+        for i in range(n_sys)])
+    return A, b, lam, x_ref
+
+
+def phase_chol(device):
+    import numpy as np
+    import torch
+    from esvio_tpu_torch.solver import chol_solve as cs
+    rows = {}
+    for B in (1, 8):
+        A, b, lam, x_ref = _spd_problem(seed=B, n_sys=B)
+        At, bt, lt = (torch.tensor(a, device=device) for a in (A, b, lam))
+        x = cs.chol_solve_cuda(At, bt, lt)
+        xp = cs.chol_solve_plain(At, bt, lt)
+        torch.cuda.synchronize()
+        x, xp = x.cpu().numpy(), xp.cpu().numpy()
+        scale = np.abs(x_ref).max()
+        rel = float(np.abs(x - x_ref).max() / scale)
+        rel_plain = float(np.abs(x - xp).max() / scale)
+        if not (rel < 5e-5 and rel_plain < 5e-5):
+            raise AssertionError(f"K2 B={B}: rel err {rel:.2e} vs float64, "
+                                 f"{rel_plain:.2e} vs plain")
+        ms = _timed(lambda: cs.chol_solve_cuda(At, bt, lt), reps=200)
+        plain_ms = _timed(lambda: cs.chol_solve_plain(At, bt, lt), reps=200)
+        rows[B] = dict(ms=ms, plain_ms=plain_ms,
+                       max_abs_err=float(np.abs(x - xp).max()))
+        log(f"  K2 chol_solve B={B} N=190: rel err {rel:.2e} vs float64, "
+            f"{rel_plain:.2e} vs plain; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+    # the NaN contract: an indefinite system comes back non-finite, its
+    # neighbour stays finite
+    A, b, lam, _ = _spd_problem(seed=2, n_sys=2)
+    A[1] -= 500.0 * np.eye(190, dtype=np.float32)
+    x = cs.chol_solve_cuda(*(torch.tensor(a, device=device) for a in (A, b, lam)))
+    x = x.cpu().numpy()
+    if not (np.isfinite(x[0]).all() and not np.isfinite(x[1]).all()):
+        raise AssertionError("K2: indefinite system did not give a "
+                             "non-finite row beside a finite one")
+    log("  K2 indefinite system: non-finite row, neighbour finite")
+    log("phase 3 Cholesky solve K2: ok")
+    return rows[1]
+
+
+# ---------------------------------------------------------------- phase 4/5
+def phase_golden(device):
+    import torch
+    from synth_np import GOLDEN, esio_pipeline, golden_gates
+    from esvio_tpu_torch import _kernels
+    make_pipeline, seq, gt_t, gt_P = esio_pipeline(device, **GOLDEN)
+    pipe = make_pipeline()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = _kernels.CORNER_MASK.launches
+    k2 = _kernels.CHOL_SOLVE.launches
+    g = golden_gates(res, gt_t, gt_P, GOLDEN_NPZ)
+    ticks = res.metrics["ticks"]
+    log(f"  golden ESIO 120x160 1.6 s: {ticks:.0f} ticks in {wall:.2f} s "
+        f"({ticks / wall:.2f} ticks/s, cold), {g['n_stamps']} NON_LINEAR "
+        f"stamps (golden {g['n_golden']}), max dev {g['max_dev_4dof']:.4f} m "
+        f"after yaw {g['yaw_deg']:.2f} deg + shift {g['shift_m']:.4f} m "
+        f"({g['max_dev']:.4f} m unaligned), ATE {g['ate']:.4f} m (golden "
+        f"{g['ate_golden']:.4f} m); launches K1 {k1}, K2 {k2}")
+    if not g["stamps_ok"]:
+        raise AssertionError("golden: NON_LINEAR stamps differ")
+    if not g["ate_ok"]:
+        raise AssertionError(f"golden: ATE {g['ate']:.4f} m > 1.5 x golden + 0.01")
+    if not g["max_dev_4dof"] < GOLDEN_MAX_DEV_M:
+        raise AssertionError(f"golden: max deviation {g['max_dev_4dof']:.4f} m "
+                             "after the yaw + translation alignment")
+    if k1 != ticks or k2 == 0:
+        raise AssertionError(f"golden: K1 launched {k1} times for {ticks:.0f} "
+                             f"tracker ticks, K2 {k2} times")
+    log("phase 4 golden pipeline: ok")
+
+
+def phase_bench_pipeline(device):
+    """The bench.py pipeline (240x320, focal 320, 2.4 s): the main path whose
+    kernel launches the JSON line reports."""
+    import numpy as np
+    import torch
+    from synth_np import BENCH, esio_pipeline
+    from esvio_tpu_torch import _kernels
+    make_pipeline, seq, gt_t, gt_P = esio_pipeline(device, **BENCH)
+    make_pipeline().run(seq)                     # cold run: first launches
+    pipe = make_pipeline()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    ticks = res.metrics["ticks"]
+    n_nl = len(res.stamps)
+    if n_nl == 0:
+        raise AssertionError("240x320 pipeline never reached NON_LINEAR")
+    P = np.asarray(res.P)
+    if not np.isfinite(P).all() or P.shape != (n_nl, 3):
+        raise AssertionError(f"240x320 pipeline: bad trajectory {P.shape}")
+    ate = res.ate(gt_t, gt_P)
+    rate = ticks / wall
+    log(f"  ESIO 240x320 2.4 s (warm): {ticks:.0f} ticks, {n_nl} NON_LINEAR, "
+        f"ATE {ate:.4f} m, {rate:.2f} ticks/s, realtime x{rate / 15.0:.3f} "
+        f"at 15 Hz; stage ms/tick {json.dumps(res.stage_times)}; "
+        f"launches {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the main path never ran: {launches}")
+    log("phase 5 240x320 pipeline: ok")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+def _texture_chunks(H, W, E, hz, ticks, device, disparity=0, sub=4):
+    """Per tick, E events of a blob texture sliding 1 px per 1/(sub*hz) s:
+    events sampled at the pixels its edges cross, polarity by the sign of
+    the change; `disparity` shifts the view as a right camera would."""
+    import numpy as np
+    from esvio_tpu_torch.events import sae as sae_mod
+    tex = _texture(H, W + sub * ticks + disparity + 2, seed=7)
+    rng = np.random.default_rng(disparity + 1)
+    view = lambda s: tex[:, s + disparity:s + disparity + W]
+    out = []
+    for k in range(ticks):
+        ts, xs, ys, ps = [], [], [], []
+        for j in range(sub):
+            s = k * sub + j
+            diff = view(s + 1) - view(s)
+            yy, xx = np.nonzero(diff)
+            ts.append(np.full(len(yy), 1.0 + (s + 1) / (sub * hz)))
+            xs.append(xx)
+            ys.append(yy)
+            ps.append((diff[yy, xx] > 0).astype(np.int32))
+        t, x, y, p = (np.concatenate(a) for a in (ts, xs, ys, ps))
+        pick = np.sort(rng.integers(0, len(t), E))
+        jitter = rng.uniform(-0.25, 0.0, E) / (sub * hz)
+        out.append(sae_mod.chunk_from_arrays(
+            np.sort(t[pick] + jitter), x[pick], y[pick], p[pick], capacity=E,
+            device=device))
+    return out
+
+
+def _frontend_ms(device, H, W, E, hz, fx, dist=(0.0, 0.0, 0.0, 0.0), iters=10):
+    """ms per event-tracker tick at (H, W) with E events per camera per
+    tick, after a warm-up, on the tracker settings of bench.py."""
+    import torch
+    from esvio_tpu_torch.core import camera
+    from esvio_tpu_torch.frontend import tracker as trk
+    cfg = trk.TrackerConfig(width=W, height=H, capacity=256,
+                            cand_capacity=1024, max_cnt=150, min_dist=10)
+    cam = camera.make_pinhole(fx, fx, W / 2, H / 2, dist, width=W, height=H,
+                              device=device)
+    ticks = iters + 3
+    left = _texture_chunks(H, W, E, hz, ticks, device)
+    right = _texture_chunks(H, W, E, hz, ticks, device, disparity=4)
+    state = trk.init_state(cfg, device)
+    for k in range(ticks):
+        if k == 3:                                        # after the warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, pkt = trk.track_event_stereo(cfg, cam, cam, state, left[k],
+                                            right[k], 1.0 + (k + 1) / hz)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / iters * 1e3
+    if not torch.isfinite(pkt.un[pkt.valid]).all():
+        raise AssertionError(f"front end {H}x{W}: non-finite feature")
+    return ms, int(pkt.valid.sum())
+
+
+def phase_frontend(device):
+    ms, n = _frontend_ms(device, 260, 346, 1 << 16, 15, 226.38,
+                         dist=(-0.048, 0.011, -0.0002, 0.0001))
+    log(f"  DAVIS346 260x346, 65536 events/camera/tick: {ms:.2f} ms/tick "
+        f"({n} tracked features)")
+    ms2, n2 = _frontend_ms(device, 480, 640, 1 << 17, 10, 560.0)
+    log(f"  DSEC 480x640, 131072 events/camera/tick: {ms2:.2f} ms/tick "
+        f"({n2} tracked features)")
+    if n == 0 or n2 == 0:
+        raise AssertionError("the front end tracked no feature")
+    log("phase 6 real-size front end: ok")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "esvio_tpu_torch")):
+        print("chip_smoke: esvio_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import esvio_tpu_torch
+    from esvio_tpu_torch import _kernels
+    esvio_tpu_torch.disable_tf32()
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    phase_device()
+    k1 = phase_corner_mask(device, [(50, 170), (120, 160), (240, 320),
+                                    (260, 346), (480, 640)], (240, 320))
+    k2 = phase_chol(device)
+    phase_golden(device)
+    launches = phase_bench_pipeline(device)
+    phase_frontend(device)
+
+    kernels = []
+    for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2)):
+        kernels.append(dict(name=k.name, route="cuda", source=k.source,
+                            replaces=k.replaces, launches=launches[k.name],
+                            max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            plain_ms=row["plain_ms"]))
+    log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""apps — see the JAX module of the same name in esvio_tpu/apps."""

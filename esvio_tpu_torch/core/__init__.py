@@ -1,0 +1,1 @@
+"""core — see the JAX module of the same name in esvio_tpu/core."""

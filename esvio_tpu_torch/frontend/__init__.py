@@ -1,0 +1,1 @@
+"""frontend — see the JAX module of the same name in esvio_tpu/frontend."""

@@ -1,0 +1,1 @@
+"""imu — see the JAX module of the same name in esvio_tpu/imu."""

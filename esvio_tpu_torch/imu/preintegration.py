@@ -1,0 +1,217 @@
+"""IMU preintegration — mid-point Δp/Δq/Δv with 15×15 Jacobian and
+covariance (port of esvio_tpu/imu/preintegration.py;
+integration_base.h:54-157).
+
+The sample buffer of each interval is integrated by a Python loop over the
+masked, fixed-capacity sample axis; intervals are a leading batch axis.
+The loop stops after the last real sample (trailing padding steps are
+no-ops by the mask).
+
+Error-state ordering: [p, θ, v, ba, bg]; noise ordering (18):
+[na0, ng0, na1, ng1, nba, nbg].
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from esvio_tpu_torch.core import lie
+
+O_P, O_R, O_V, O_BA, O_BG = 0, 3, 6, 9, 12
+
+
+@dataclasses.dataclass
+class ImuParams:
+    acc_n: torch.Tensor
+    gyr_n: torch.Tensor
+    acc_w: torch.Tensor
+    gyr_w: torch.Tensor
+    g: torch.Tensor  # (3,) gravity vector in world
+
+
+def make_imu_params(acc_n=0.2, gyr_n=0.05, acc_w=0.002, gyr_w=4e-5,
+                    g_norm=9.80766, dtype=torch.float32, device=None) -> ImuParams:
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    return ImuParams(acc_n=t(acc_n), gyr_n=t(gyr_n), acc_w=t(acc_w),
+                     gyr_w=t(gyr_w), g=t([0.0, 0.0, g_norm]))
+
+
+@dataclasses.dataclass
+class Preintegrated:
+    """One IMU interval (or a leading batch of them) integrated at the
+    linearization biases."""
+
+    delta_p: torch.Tensor      # (..., 3)
+    delta_q: torch.Tensor      # (..., 4) wxyz
+    delta_v: torch.Tensor      # (..., 3)
+    jacobian: torch.Tensor     # (..., 15, 15)
+    covariance: torch.Tensor   # (..., 15, 15)
+    sum_dt: torch.Tensor       # (...)
+    linearized_ba: torch.Tensor  # (..., 3)
+    linearized_bg: torch.Tensor  # (..., 3)
+
+    def index(self, i):
+        return Preintegrated(*(getattr(self, f.name)[i]
+                               for f in dataclasses.fields(self)))
+
+
+def _noise_cov(params: ImuParams, dtype):
+    eye = torch.eye(3, dtype=dtype, device=params.g.device)
+    an2 = params.acc_n * params.acc_n
+    gn2 = params.gyr_n * params.gyr_n
+    aw2 = params.acc_w * params.acc_w
+    gw2 = params.gyr_w * params.gyr_w
+    return torch.block_diag(an2 * eye, gn2 * eye, an2 * eye, gn2 * eye,
+                            aw2 * eye, gw2 * eye)
+
+
+def _mm(a, b):
+    return torch.matmul(a, b)
+
+
+def midpoint_step(dt, acc_0, gyr_0, acc_1, gyr_1, delta_p, delta_q, delta_v,
+                  ba, bg, jacobian, covariance, noise):
+    """One mid-point integration step (integration_base.h:54-127), batched
+    over leading axes: dt (...), vectors (..., 3), matrices (..., 15, 15)."""
+    dtype, dev = delta_p.dtype, delta_p.device
+    d1 = dt[..., None]
+    un_acc_0 = lie.quat_rotate(delta_q, acc_0 - ba)
+    un_gyr = 0.5 * (gyr_0 + gyr_1) - bg
+    dq_step = torch.cat([torch.ones_like(un_gyr[..., :1]), un_gyr * d1 * 0.5], -1)
+    result_q = lie.quat_normalize(lie.quat_mul(delta_q, dq_step))
+    un_acc_1 = lie.quat_rotate(result_q, acc_1 - ba)
+    un_acc = 0.5 * (un_acc_0 + un_acc_1)
+    result_p = delta_p + delta_v * d1 + 0.5 * un_acc * d1 * d1
+    result_v = delta_v + un_acc * d1
+
+    # error-state transition F (15×15) and noise mapping V (15×18)
+    R_w = lie.skew(un_gyr)
+    R_a0 = lie.skew(acc_0 - ba)
+    R_a1 = lie.skew(acc_1 - ba)
+    Rq = lie.quat_to_rot(delta_q)
+    Rq1 = lie.quat_to_rot(result_q)
+    eye = torch.eye(3, dtype=dtype, device=dev).expand(Rq.shape)
+    d = dt[..., None, None]
+    dt2 = d * d
+    lead = dt.shape
+
+    F = torch.zeros(lead + (15, 15), dtype=dtype, device=dev)
+    F[..., 0:3, 0:3] = eye
+    F[..., 0:3, 3:6] = (-0.25 * _mm(Rq, R_a0) * dt2
+                        - 0.25 * _mm(_mm(Rq1, R_a1), eye - R_w * d) * dt2)
+    F[..., 0:3, 6:9] = eye * d
+    F[..., 0:3, 9:12] = -0.25 * (Rq + Rq1) * dt2
+    F[..., 0:3, 12:15] = 0.25 * _mm(Rq1, R_a1) * dt2 * d
+    F[..., 3:6, 3:6] = eye - R_w * d
+    F[..., 3:6, 12:15] = -eye * d
+    F[..., 6:9, 3:6] = (-0.5 * _mm(Rq, R_a0) * d
+                        - 0.5 * _mm(_mm(Rq1, R_a1), eye - R_w * d) * d)
+    F[..., 6:9, 6:9] = eye
+    F[..., 6:9, 9:12] = -0.5 * (Rq + Rq1) * d
+    F[..., 6:9, 12:15] = 0.5 * _mm(Rq1, R_a1) * d * d
+    F[..., 9:12, 9:12] = eye
+    F[..., 12:15, 12:15] = eye
+
+    V = torch.zeros(lead + (15, 18), dtype=dtype, device=dev)
+    v03 = -0.25 * _mm(Rq1, R_a1) * dt2 * (0.5 * d)
+    V[..., 0:3, 0:3] = 0.25 * Rq * dt2
+    V[..., 0:3, 3:6] = v03
+    V[..., 0:3, 6:9] = 0.25 * Rq1 * dt2
+    V[..., 0:3, 9:12] = v03
+    v63 = -0.5 * _mm(Rq1, R_a1) * d * (0.5 * d)
+    V[..., 3:6, 3:6] = 0.5 * eye * d
+    V[..., 3:6, 9:12] = 0.5 * eye * d
+    V[..., 6:9, 0:3] = 0.5 * Rq * d
+    V[..., 6:9, 3:6] = v63
+    V[..., 6:9, 6:9] = 0.5 * Rq1 * d
+    V[..., 6:9, 9:12] = v63
+    V[..., 9:12, 12:15] = eye * d
+    V[..., 12:15, 15:18] = eye * d
+
+    new_jac = _mm(F, jacobian)
+    new_cov = _mm(_mm(F, covariance), F.transpose(-1, -2)) \
+        + _mm(_mm(V, noise), V.transpose(-1, -2))
+    return result_p, result_q, result_v, new_jac, new_cov
+
+
+def preintegrate_batch(dts, accs, gyrs, acc0, gyr0, ba, bg,
+                       params: ImuParams, mask) -> Preintegrated:
+    """Integrate K intervals at once.
+
+    dts (K, N); accs/gyrs (K, N, 3) (acc_1 of each step); acc0/gyr0 (K, 3)
+    the sample at interval start; ba/bg (K, 3) linearization biases;
+    mask (K, N) bool — True for real samples (padding steps are skipped)."""
+    dtype, dev = accs.dtype, accs.device
+    K, N = dts.shape
+    noise = _noise_cov(params, dtype)
+    dts = dts.to(dtype)
+    mask = mask.to(torch.bool)
+    # steps after the last real sample of every interval are no-ops
+    n_steps = int(torch.nonzero(mask.any(0)).max()) + 1 if bool(mask.any()) else 0
+
+    dp = torch.zeros((K, 3), dtype=dtype, device=dev)
+    dq = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev).repeat(K, 1)
+    dv = torch.zeros((K, 3), dtype=dtype, device=dev)
+    jac = torch.eye(15, dtype=dtype, device=dev).repeat(K, 1, 1)
+    cov = torch.zeros((K, 15, 15), dtype=dtype, device=dev)
+    sum_dt = torch.zeros((K,), dtype=dtype, device=dev)
+    a0 = acc0.to(dtype)
+    g0 = gyr0.to(dtype)
+    for n in range(n_steps):
+        dt, a1, g1, m = dts[:, n], accs[:, n], gyrs[:, n], mask[:, n]
+        ndp, ndq, ndv, njac, ncov = midpoint_step(
+            dt, a0, g0, a1, g1, dp, dq, dv, ba, bg, jac, cov, noise)
+        m1, m2 = m[:, None], m[:, None, None]
+        dp = torch.where(m1, ndp, dp)
+        dq = torch.where(m1, ndq, dq)
+        dv = torch.where(m1, ndv, dv)
+        jac = torch.where(m2, njac, jac)
+        cov = torch.where(m2, ncov, cov)
+        sum_dt = torch.where(m, sum_dt + dt, sum_dt)
+        a0 = torch.where(m1, a1, a0)
+        g0 = torch.where(m1, g1, g0)
+    return Preintegrated(delta_p=dp, delta_q=dq, delta_v=dv, jacobian=jac,
+                         covariance=cov, sum_dt=sum_dt,
+                         linearized_ba=ba.to(dtype), linearized_bg=bg.to(dtype))
+
+
+def preintegrate(dts, accs, gyrs, acc0, gyr0, ba, bg, params: ImuParams,
+                 mask=None) -> Preintegrated:
+    """One interval: dts (N,), accs/gyrs (N, 3), acc0/gyr0/ba/bg (3,)."""
+    if mask is None:
+        mask = torch.ones(dts.shape, dtype=torch.bool, device=dts.device)
+    return preintegrate_batch(
+        dts[None], accs[None], gyrs[None], acc0[None], gyr0[None], ba[None],
+        bg[None], params, mask[None]).index(0)
+
+
+def _bmv(M, v):
+    return torch.einsum("...ij,...j->...i", M, v)
+
+
+def evaluate(pre: Preintegrated, g, Pi, Qi, Vi, Bai, Bgi, Pj, Qj, Vj, Baj, Bgj):
+    """15-dim preintegration residual (integration_base.h:159-185), batched
+    over leading axes."""
+    J = pre.jacobian
+    dp_dba = J[..., O_P:O_P + 3, O_BA:O_BA + 3]
+    dp_dbg = J[..., O_P:O_P + 3, O_BG:O_BG + 3]
+    dq_dbg = J[..., O_R:O_R + 3, O_BG:O_BG + 3]
+    dv_dba = J[..., O_V:O_V + 3, O_BA:O_BA + 3]
+    dv_dbg = J[..., O_V:O_V + 3, O_BG:O_BG + 3]
+
+    dba = Bai - pre.linearized_ba
+    dbg = Bgi - pre.linearized_bg
+
+    corrected_q = lie.quat_mul(pre.delta_q, lie.delta_q(_bmv(dq_dbg, dbg)))
+    corrected_v = pre.delta_v + _bmv(dv_dba, dba) + _bmv(dv_dbg, dbg)
+    corrected_p = pre.delta_p + _bmv(dp_dba, dba) + _bmv(dp_dbg, dbg)
+
+    sdt = pre.sum_dt[..., None]
+    qi_inv = lie.quat_conj(Qi)
+    r_p = lie.quat_rotate(qi_inv, lie.scale(g, 0.5) * sdt * sdt + Pj - Pi - Vi * sdt) \
+        - corrected_p
+    r_q = lie.scale(lie.quat_mul(lie.quat_inv(corrected_q),
+                                 lie.quat_mul(qi_inv, Qj))[..., 1:], 2.0)
+    r_v = lie.quat_rotate(qi_inv, g * sdt + Vj - Vi) - corrected_v
+    return torch.cat([r_p, r_q, r_v, Baj - Bai, Bgj - Bgi], dim=-1)

@@ -1,0 +1,1 @@
+"""init — see the JAX module of the same name in esvio_tpu/init."""

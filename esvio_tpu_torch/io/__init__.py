@@ -1,0 +1,1 @@
+"""io — see the JAX module of the same name in esvio_tpu/io."""

@@ -1,0 +1,1 @@
+"""solver — see the JAX module of the same name in esvio_tpu/solver."""

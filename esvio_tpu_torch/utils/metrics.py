@@ -1,0 +1,81 @@
+"""Stage timers and counters (port of `StageTimer` and `Metrics`,
+esvio_tpu/utils/metrics.py).
+
+StageTimer synchronizes the CUDA device before it reads the clock at both
+ends of a stage when it is given a CUDA device: PyTorch returns before the
+card finishes, so an unsynchronized host clock would time the enqueue.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+
+import torch
+
+
+class StageTimer:
+    """Accumulating wall-clock stage timers.
+
+    >>> tim = StageTimer(device)
+    >>> with tim("frontend"):  out = frontend(...)
+    >>> tim.report()  # {'frontend': {'total_s':..., 'n':..., 'mean_ms':...}}
+    """
+
+    def __init__(self, device=None):
+        dev = torch.device(device) if device is not None else None
+        self._cuda = dev if dev is not None and dev.type == "cuda" else None
+        self.total = defaultdict(float)
+        self.count = defaultdict(int)
+
+    def _sync(self):
+        if self._cuda is not None:
+            torch.cuda.synchronize(self._cuda)
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        self._sync()
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            self._sync()
+            self.total[stage] += time.perf_counter() - t0
+            self.count[stage] += 1
+
+    def report(self):
+        return {
+            k: dict(total_s=round(self.total[k], 6), n=self.count[k],
+                    mean_ms=round(self.total[k] / max(self.count[k], 1) * 1e3, 3))
+            for k in self.total
+        }
+
+
+class Metrics:
+    """Counters + gauges + simple series."""
+
+    def __init__(self):
+        self.counters = defaultdict(float)
+        self.gauges = {}
+        self.series = defaultdict(list)
+
+    def count(self, name: str, inc: float = 1.0):
+        self.counters[name] += inc
+
+    def gauge(self, name: str, value: float):
+        self.gauges[name] = float(value)
+
+    def observe(self, name: str, value: float):
+        self.series[name].append(float(value))
+
+    def summary(self):
+        out = dict(self.gauges)
+        out.update(self.counters)
+        for k, vs in self.series.items():
+            if vs:
+                s = sorted(vs)
+                out[f"{k}.mean"] = sum(vs) / len(vs)
+                out[f"{k}.p50"] = s[len(s) // 2]
+                out[f"{k}.p95"] = s[min(len(s) - 1, int(len(s) * 0.95))]
+                out[f"{k}.max"] = s[-1]
+        return out

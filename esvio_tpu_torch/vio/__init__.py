@@ -1,0 +1,1 @@
+"""vio — see the JAX module of the same name in esvio_tpu/vio."""

@@ -1,0 +1,652 @@
+"""Sliding-window VIO estimator — the state machine around the solver (port
+of the general path of esvio_tpu/vio/estimator.py).
+
+  packets → book insertion + parallax keyframe test → (INITIAL: stereo-PnP
+  bootstrap + gyro-bias/gravity alignment) → triangulation → LM window
+  solve → gauge fix → failure detection → marginalization → window slide.
+
+Host Python runs the control flow on a few fetched scalars per tick; the
+numeric state (window, books, prior) lives on the estimator's device.
+
+Not ported yet (ROADMAP queue 1): the fused one-program steady tick
+(`fused=True` raises), the monocular initialization fallback, online
+extrinsic calibration (`estimate_extrinsic == 2`) and relocalization.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from esvio_tpu_torch.core import lie, lie_np, prng
+from esvio_tpu_torch.imu import preintegration as pre
+from esvio_tpu_torch.init import alignment, pnp, relative_pose
+from esvio_tpu_torch.solver import gauss_newton as gn
+from esvio_tpu_torch.solver import marginalization as marg
+from esvio_tpu_torch.solver import window as win
+from esvio_tpu_torch.vio import feature_manager as fm
+
+WINDOW = win.WINDOW
+
+MARGIN_OLD = 0
+MARGIN_SECOND_NEW = 1
+
+# init PnP-chain rotation gate vs the gyro prediction (deg per interval)
+_GYRO_GATE_DEG = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EstimatorConfig:
+    mode: str = "esvio"            # "esvio" (events+images) or "esio"
+    evt_capacity: int = 128
+    img_capacity: int = 128
+    imu_capacity: int = 512        # IMU samples per window interval
+    min_parallax: float = 10.0 / win.FOCAL
+    g_norm: float = 9.80766
+    solver_iters: int = 8
+    cauchy_c: float = 1.0
+    min_track_for_kf: int = 20
+    estimate_extrinsic: int = 0    # 0 fixed, 1 refine (2 is not ported)
+    estimate_td: int = 0
+    use_stereo_correction: bool = True
+    dtype: torch.dtype = torch.float32
+    fused: bool = False            # the fused steady tick is not ported
+
+
+@dataclasses.dataclass
+class Output:
+    t: float
+    P: np.ndarray
+    Q: np.ndarray
+    V: np.ndarray
+    solver_flag: str
+    marg_flag: int
+    n_tracked: Optional[int] = None
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _replace_rows(ws, k, src):
+    """Window state with rows k of P/Q/V/Ba/Bg set from `src` dict."""
+    out = {}
+    for name in ("P", "Q", "V", "Ba", "Bg"):
+        a = getattr(ws, name).clone()
+        a[k] = src[name]
+        out[name] = a
+    return dataclasses.replace(ws, **out)
+
+
+def _slide_old_state(ws):
+    roll = lambda x: torch.cat([x[1:], x[-1:]], dim=0)
+    return dataclasses.replace(ws, P=roll(ws.P), Q=roll(ws.Q), V=roll(ws.V),
+                               Ba=roll(ws.Ba), Bg=roll(ws.Bg))
+
+
+def _slide_second_state(ws):
+    return _replace_rows(ws, WINDOW - 1, {n: getattr(ws, n)[WINDOW]
+                                          for n in ("P", "Q", "V", "Ba", "Bg")})
+
+
+class Estimator:
+    """Host-side estimator holding device tensors + numpy IMU buffers."""
+
+    def __init__(self, cfg: EstimatorConfig, ex_p, ex_q, device,
+                 imu_params: Optional[pre.ImuParams] = None):
+        if cfg.fused:
+            raise NotImplementedError(
+                "the fused steady-state tick is not ported (ROADMAP 1.11b)")
+        if cfg.estimate_extrinsic == 2:
+            raise NotImplementedError(
+                "online extrinsic calibration is not ported (ROADMAP 1.10)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        dt = cfg.dtype
+        self.ws = dataclasses.replace(
+            win.init_window(self.device, dt),
+            ex_p=torch.as_tensor(np.asarray(ex_p), dtype=dt, device=self.device),
+            ex_q=torch.as_tensor(np.asarray(ex_q), dtype=dt, device=self.device))
+        self.book_img = win.empty_book(cfg.img_capacity, self.device, dt)
+        self.book_evt = win.empty_book(cfg.evt_capacity, self.device, dt)
+        self.prior = gn.empty_prior(self.device, dt)
+        self.imu_params = imu_params or pre.make_imu_params(
+            g_norm=cfg.g_norm, dtype=dt, device=self.device)
+        self.g = torch.tensor([0.0, 0.0, cfg.g_norm], dtype=dt, device=self.device)
+
+        self.frame_count = 0
+        self.solver_flag = "INITIAL"
+        self.timestamps = np.zeros(win.N_STATES)
+        C = cfg.imu_capacity
+        self.imu_dt = np.zeros((win.N_STATES, C))
+        self.imu_acc = np.zeros((win.N_STATES, C, 3))
+        self.imu_gyr = np.zeros((win.N_STATES, C, 3))
+        self.imu_n = np.zeros(win.N_STATES, np.int32)
+        self.acc0 = np.zeros(3)
+        self.gyr0 = np.zeros(3)
+        self.first_imu = False
+        self.last_marg = MARGIN_OLD
+        self.failures = 0
+        self._prior_valid = False
+        self._seen_img = False
+        self._post = None
+        self.n_solves = 0
+        self.lanes_dropped = 0
+        self._latest = None
+        self._imu_replay = []
+        self._update_stereo_extrinsics()
+
+    def _t(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype or self.cfg.dtype,
+                               device=self.device)
+
+    def _update_stereo_extrinsics(self):
+        """Cached left→right transforms from the window extrinsics (float64
+        on the host, as the JAX package computes them)."""
+        self._rrl, self._trl = {}, {}
+        ex_q = _np(self.ws.ex_q).astype(np.float64)
+        ex_p = _np(self.ws.ex_p).astype(np.float64)
+        for name, (l, r) in (("img", (0, 2)), ("evt", (1, 3))):
+            Rl = _np(lie.quat_to_rot(torch.from_numpy(ex_q[l])))
+            Rr = _np(lie.quat_to_rot(torch.from_numpy(ex_q[r])))
+            self._rrl[name] = self._t(Rr.T @ Rl)
+            self._trl[name] = self._t(Rr.T @ (ex_p[l] - ex_p[r]))
+
+    # ------------------------------------------------------------------ IMU
+    def process_imu(self, dt: float, acc, gyr):
+        """Buffer one IMU sample into the current interval (processIMU)."""
+        if not self.first_imu:
+            self.first_imu = True
+            self.acc0 = np.asarray(acc, float)
+            self.gyr0 = np.asarray(gyr, float)
+            return
+        k = self.frame_count
+        n = self.imu_n[k]
+        if n < self.cfg.imu_capacity:
+            self.imu_dt[k, n] = dt
+            self.imu_acc[k, n] = acc
+            self.imu_gyr[k, n] = gyr
+            self.imu_n[k] = n + 1
+        self.acc0 = np.asarray(acc, float)
+        self.gyr0 = np.asarray(gyr, float)
+
+    def _predict_step(self, s, t_k, acc, gyr, g):
+        dt = t_k - s["t"]
+        if 0 < dt <= 1.0:
+            un_acc_0 = lie_np.quat_rotate(s["Q"], s["acc"] - s["Ba"]) - g
+            un_gyr = 0.5 * (s["gyr"] + gyr) - s["Bg"]
+            s["Q"] = lie_np.quat_normalize(
+                lie_np.quat_mul(s["Q"], lie_np.delta_q(un_gyr * dt)))
+            un_acc_1 = lie_np.quat_rotate(s["Q"], acc - s["Ba"]) - g
+            un_acc = 0.5 * (un_acc_0 + un_acc_1)
+            s["P"] = s["P"] + dt * s["V"] + 0.5 * dt * dt * un_acc
+            s["V"] = s["V"] + dt * un_acc
+        s["t"], s["acc"], s["gyr"] = t_k, acc, gyr
+
+    def _init_latest(self, t, acc, gyr):
+        self._latest = dict(t=float(t), P=np.zeros(3), Q=np.array([1.0, 0, 0, 0]),
+                            V=np.zeros(3), Ba=np.zeros(3), Bg=np.zeros(3),
+                            acc=acc, gyr=gyr)
+        if self.solver_flag == "NON_LINEAR":
+            self._seed_latest_from_window(float(t))
+
+    def predict(self, t: float, acc, gyr):
+        """IMU-rate low-latency state propagation (predict()): midpoint
+        integration of the latest state by one sample, in numpy."""
+        acc = np.asarray(acc, float)
+        gyr = np.asarray(gyr, float)
+        self._imu_replay.append((float(t), acc, gyr))
+        if self._latest is None:
+            self._init_latest(t, acc, gyr)
+        s = self._latest
+        self._predict_step(s, float(t), acc, gyr,
+                           np.array([0.0, 0.0, self.cfg.g_norm]))
+        return s["P"].copy(), s["Q"].copy(), s["V"].copy()
+
+    def process_imu_and_predict(self, ts, accs, gyrs, prev_t):
+        """Buffer every sample of (prev_t, t] into the current interval AND
+        propagate the IMU-rate state through them (imu_callback, batched).
+        Returns (P (n,3), Q (n,4), V (n,3)) numpy."""
+        ts = np.asarray(ts, float)
+        accs = np.asarray(accs, float)
+        gyrs = np.asarray(gyrs, float)
+        n = len(ts)
+        if n == 0:
+            return np.zeros((0, 3)), np.zeros((0, 4)), np.zeros((0, 3))
+        dts = np.diff(np.concatenate([[prev_t], ts]))
+        i0 = 0
+        if not self.first_imu:
+            self.first_imu = True
+            i0 = 1
+        m = n - i0
+        if m > 0:
+            k = self.frame_count
+            cur = int(self.imu_n[k])
+            take = min(m, self.cfg.imu_capacity - cur)
+            if take > 0:
+                self.imu_dt[k, cur:cur + take] = dts[i0:i0 + take]
+                self.imu_acc[k, cur:cur + take] = accs[i0:i0 + take]
+                self.imu_gyr[k, cur:cur + take] = gyrs[i0:i0 + take]
+                self.imu_n[k] = cur + take
+        self.acc0 = accs[-1].copy()
+        self.gyr0 = gyrs[-1].copy()
+
+        P_out = np.empty((n, 3))
+        Q_out = np.empty((n, 4))
+        V_out = np.empty((n, 3))
+        g = np.array([0.0, 0.0, self.cfg.g_norm])
+        self._imu_replay.extend((float(ts[k]), accs[k], gyrs[k]) for k in range(n))
+        if self._latest is None:
+            self._init_latest(ts[0], accs[0], gyrs[0])
+        s = self._latest
+        for k in range(n):
+            self._predict_step(s, float(ts[k]), accs[k], gyrs[k], g)
+            P_out[k], Q_out[k], V_out[k] = s["P"], s["Q"], s["V"]
+        return P_out, Q_out, V_out
+
+    def _seed_latest_from_window(self, t):
+        k = min(self.frame_count, WINDOW)
+        src = self._post if self._post is not None else {
+            n: _np(getattr(self.ws, n)) for n in ("P", "Q", "V", "Ba", "Bg")}
+        self._latest.update(t=t, **{n: np.asarray(src[n][k], float)
+                                    for n in ("P", "Q", "V", "Ba", "Bg")})
+
+    def update_latest(self):
+        """Re-seed the IMU-rate state from the newest solved frame and replay
+        the buffered samples since its stamp (update())."""
+        if self._latest is None or self.solver_flag != "NON_LINEAR":
+            return
+        k = min(self.frame_count, WINDOW)
+        t_frame = float(self.timestamps[k])
+        replay = [(t, a, w) for (t, a, w) in self._imu_replay if t > t_frame]
+        self._seed_latest_from_window(t_frame)
+        self._imu_replay = []
+        for (t, a, w) in replay:
+            self.predict(t, a, w)
+
+    def _interval_first_sample(self, k):
+        """acc_0/gyr_0 linearization sample of interval k: last of k-1."""
+        if k == 0 or self.imu_n[k - 1] == 0:
+            if self.imu_n[k] > 0:
+                return self.imu_acc[k, 0], self.imu_gyr[k, 0]
+            return np.zeros(3), np.zeros(3)
+        m = self.imu_n[k - 1] - 1
+        return self.imu_acc[k - 1, m], self.imu_gyr[k - 1, m]
+
+    def _preintegrate_all(self, ba=None, bg=None):
+        """Preintegrate all 10 window intervals (k=1..10 → slots 0..9)."""
+        a0s = np.zeros((WINDOW, 3))
+        g0s = np.zeros((WINDOW, 3))
+        for k in range(1, win.N_STATES):
+            a0s[k - 1], g0s[k - 1] = self._interval_first_sample(k)
+        mask = np.arange(self.cfg.imu_capacity)[None, :] < self.imu_n[1:, None]
+        ba_all = self.ws.Ba[:WINDOW] if ba is None \
+            else self._t(ba)[None].repeat(WINDOW, 1)
+        bg_all = self.ws.Bg[:WINDOW] if bg is None \
+            else self._t(bg)[None].repeat(WINDOW, 1)
+        return pre.preintegrate_batch(
+            self._t(self.imu_dt[1:]), self._t(self.imu_acc[1:]),
+            self._t(self.imu_gyr[1:]), self._t(a0s), self._t(g0s),
+            ba_all, bg_all, self.imu_params, self._t(mask, torch.bool))
+
+    def _propagate_new_frame(self, k):
+        """Dead-reckon the pose of frame k from frame k-1 via interval k."""
+        ws = self.ws
+        if k == 0 or self.imu_n[k] == 0:
+            if k > 0:
+                self.ws = _replace_rows(ws, k, {n: getattr(ws, n)[k - 1]
+                                                for n in ("P", "Q", "V", "Ba", "Bg")})
+            return
+        a0, g0 = self._interval_first_sample(k)
+        mask = np.arange(self.cfg.imu_capacity) < int(self.imu_n[k])
+        p = pre.preintegrate_batch(
+            self._t(self.imu_dt[k][None]), self._t(self.imu_acc[k][None]),
+            self._t(self.imu_gyr[k][None]), self._t(a0[None]),
+            self._t(g0[None]), ws.Ba[k - 1][None], ws.Bg[k - 1][None],
+            self.imu_params, self._t(mask[None], torch.bool)).index(0)
+        Qk = lie.quat_normalize(lie.quat_mul(ws.Q[k - 1], p.delta_q))
+        Vk = ws.V[k - 1] + lie.quat_rotate(ws.Q[k - 1], p.delta_v) \
+            - self.g * p.sum_dt
+        Pk = ws.P[k - 1] + ws.V[k - 1] * p.sum_dt \
+            + lie.quat_rotate(ws.Q[k - 1], p.delta_p) \
+            - 0.5 * self.g * p.sum_dt ** 2
+        self.ws = _replace_rows(ws, k, dict(P=Pk, Q=Qk, V=Vk, Ba=ws.Ba[k - 1],
+                                            Bg=ws.Bg[k - 1]))
+
+    # ------------------------------------------------------------- features
+    def _insert(self, book, packet, frame_idx):
+        """td_obs ≡ 0: frames stay anchored at their claimed stamps (see the
+        JAX estimator's _insert for the convention)."""
+        dev = self.device
+        t = lambda a, dt=self.cfg.dtype: torch.as_tensor(a, device=dev).to(dt)
+        return fm.insert_packet(
+            book, t(packet.ids, torch.int32), t(packet.valid, torch.bool),
+            t(packet.un), t(packet.vel), t(packet.right_valid, torch.bool),
+            t(packet.un_right), t(packet.vel_right),
+            torch.zeros_like(self.ws.td), frame_idx)
+
+    def process_packets(self, t: float, pkt_evt, pkt_img=None) -> Output:
+        """Main measurement step (Stereo_processVisual, estimator.cpp:204-308),
+        general multi-dispatch path."""
+        if pkt_img is not None:
+            raise NotImplementedError("image packets (ESVIO) are not ported")
+        cfg = self.cfg
+        if cfg.estimate_extrinsic:
+            self._update_stereo_extrinsics()
+        fc = self.frame_count
+        self.timestamps[fc] = t
+        if fc > 0:
+            self._propagate_new_frame(fc)
+
+        self.book_evt, n_trk_e, n_drop_e = self._insert(self.book_evt, pkt_evt, fc)
+        par_book = self.book_evt
+        fetch = [n_trk_e, n_drop_e]
+        if fc >= 2:
+            fetch += list(fm.mean_parallax(par_book, fc))
+        vals = [v.item() for v in fetch]          # one round of host fetches
+        self.lanes_dropped += int(vals[1])
+        n_tracked = int(vals[0])
+
+        # keyframe test (stereo_addFeatureCheckParallax :416-425)
+        if fc < 2 or n_tracked < cfg.min_track_for_kf:
+            marg_flag = MARGIN_OLD
+        elif int(vals[3]) == 0 or float(vals[2]) >= cfg.min_parallax:
+            marg_flag = MARGIN_OLD
+        else:
+            marg_flag = MARGIN_SECOND_NEW
+        self.last_marg = marg_flag
+
+        if self.solver_flag == "INITIAL":
+            if fc < WINDOW:
+                self.frame_count += 1
+                return self._output(t, marg_flag)
+            # Only the stereo bootstrap is ported: when it fails the window
+            # slides and the next tick retries; the monocular GlobalSFM
+            # fallback of the JAX estimator is ROADMAP 1.10.
+            if not self._try_initialize():
+                self._slide(MARGIN_OLD)
+                return self._output(t, marg_flag)
+            self.solver_flag = "NON_LINEAR"
+
+        self._triangulate()
+        preints = self._preintegrate_all()
+        imu_valid = self._imu_valid()
+        ref_p0, ref_q0 = self.ws.P[0], self.ws.Q[0]
+        self.ws, self.book_img, self.book_evt, _costs = gn.solve_window(
+            self.ws, self.book_img, self.book_evt, preints, imu_valid,
+            self.prior, self.g, iters=cfg.solver_iters, cauchy_c=cfg.cauchy_c,
+            frozen=self._frozen_mask())
+        self.ws = win.gauge_fix(self.ws, ref_p0, ref_q0)
+        if cfg.estimate_extrinsic:
+            self._update_stereo_extrinsics()
+        self.book_img = fm.remove_failures(self.book_img)
+        self.book_evt = fm.remove_failures(self.book_evt)
+        post = self._post_fetch(n_tracked)
+        self._failure_detection(post)
+
+        if marg_flag == MARGIN_OLD:
+            self.prior = marg.marginalize_old(
+                self.ws, self.book_img, self.book_evt, preints, imu_valid,
+                self.prior, self.g, cfg.cauchy_c)
+            self._prior_valid = True
+        elif self._prior_valid:
+            self.prior = marg.marginalize_second_new(self.prior)
+        self._slide(marg_flag)
+        self._post = post
+        return self._output(t, marg_flag, post=post)
+
+    # ------------------------------------------------------- initialization
+    def _try_initialize(self) -> bool:
+        """Stereo-depth PnP-chain bootstrap + visual-IMU alignment
+        (initialStructureStereo, estimator.cpp:706-856 + :1170-1264)."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        book, ex_idx, name = self.book_evt, 1, "evt"
+        Rex_np = _np(lie.quat_to_rot(self.ws.ex_q[ex_idx]))
+        tex_n = _np(self.ws.ex_p[ex_idx])
+
+        preints = self._preintegrate_all(ba=np.zeros(3), bg=np.zeros(3))
+        un = _np(book.un)
+        obs = _np(book.obs)
+        stereo = _np(book.stereo)
+        active = _np(book.active)
+
+        Z = _np(fm.stereo_depth_table(book.un, book.un_r, book.stereo,
+                                      self._rrl[name], self._trl[name]))
+        anc = np.where(obs & stereo, np.arange(win.N_STATES)[None, :], -1)
+        anchor_upto = np.maximum.accumulate(anc, axis=1)
+
+        R_wc = [np.eye(3)]
+        t_wc = [np.zeros(3)]
+        dq = _np(lie.quat_to_rot(preints.delta_q))
+        dR_cam = [Rex_np.T @ dq[k] @ Rex_np for k in range(win.N_STATES - 1)]
+
+        def rot_angle_deg(Ra, Rb):
+            c = (np.trace(Ra.T @ Rb) - 1.0) / 2.0
+            return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+        def translation_only(R_cw, pts_w, obs2):
+            """Linear LS for t given a fixed rotation."""
+            P3 = np.asarray(pts_w)
+            O2 = np.asarray(obs2)
+            rp = P3 @ R_cw.T
+            A = np.zeros((2 * len(P3), 3))
+            b = np.zeros(2 * len(P3))
+            A[0::2, 0] = 1.0
+            A[0::2, 2] = -O2[:, 0]
+            b[0::2] = O2[:, 0] * rp[:, 2] - rp[:, 0]
+            A[1::2, 1] = 1.0
+            A[1::2, 2] = -O2[:, 1]
+            b[1::2] = O2[:, 1] * rp[:, 2] - rp[:, 1]
+            return np.linalg.lstsq(A, b, rcond=None)[0]
+
+        def hybrid_step(f):
+            """E-matrix rotation + depth-anchored metric translation f-1 → f
+            (solveRelativeHybrid, solve_5pts.cpp:247-302)."""
+            corr = active & obs[:, f - 1] & obs[:, f]
+            if corr.sum() < 12:
+                return None
+            depth1 = np.where(corr, Z[:, f - 1], -1.0)
+            key = prng.PRNGKey((f * 9973 + 17) & 0x7FFFFFFF, self.device)
+            ok, R12, t12, _ = relative_pose.solve_relative_hybrid(
+                key, self._t(un[:, f - 1]), self._t(un[:, f]), self._t(depth1),
+                self._t(corr, torch.bool))
+            if not bool(ok):
+                return None
+            R12, t12 = _np(R12), _np(t12)
+            return R_wc[f - 1] @ R12, R_wc[f - 1] @ t12 + t_wc[f - 1]
+
+        for f in range(1, win.N_STATES):
+            a = anchor_upto[:, f - 1]
+            sel = active & obs[:, f] & (a >= 0) \
+                & (Z[np.arange(len(a)), np.maximum(a, 0)] > 0)
+            idxs = np.nonzero(sel)[0]
+            if len(idxs):
+                zs = Z[idxs, a[idxs]]
+                pc = np.stack([un[idxs, a[idxs], 0] * zs,
+                               un[idxs, a[idxs], 1] * zs, zs], -1)
+                Rw = np.stack([R_wc[e] for e in a[idxs]])
+                tw = np.stack([t_wc[e] for e in a[idxs]])
+                pts_w = list(np.einsum("nij,nj->ni", Rw, pc) + tw)
+                obs2 = list(un[idxs, f])
+            else:
+                pts_w, obs2 = [], []
+            R_pred = R_wc[f - 1] @ dR_cam[f - 1]
+
+            def rot_gated(R_new, t_new, pts_w=pts_w, obs2=obs2, R_pred=R_pred):
+                """Keep the visual rotation only when it agrees with the gyro;
+                otherwise the gyro rotation + a linear translation."""
+                if rot_angle_deg(R_new, R_pred) <= _GYRO_GATE_DEG:
+                    return R_new, t_new
+                if len(pts_w) >= 6:
+                    t_cam = translation_only(R_pred.T, pts_w, obs2)
+                    return R_pred, -R_pred @ t_cam
+                return R_pred, t_new
+
+            if len(pts_w) < 6:
+                alt = hybrid_step(f)
+                if alt is None:
+                    return False
+                Rg, tg = rot_gated(alt[0], alt[1])
+                R_wc.append(Rg)
+                t_wc.append(tg)
+                continue
+            pts_p, obs_p, val_p = pnp.pad_points(pts_w, obs2,
+                                                 min_size=int(un.shape[0]))
+            t0 = t_wc[f - 1]
+            best = None
+            for R0 in (R_pred.T, R_wc[f - 1].T):
+                R_c, tt_c, err_c = pnp.pnp_gn(
+                    self._t(pts_p), self._t(obs_p), self._t(val_p, torch.bool),
+                    self._t(R0), self._t(t0), iters=15)
+                err_c = float(err_c)
+                if best is None or err_c < best[2]:
+                    best = (R_c, tt_c, err_c)
+            R, tt, err = best
+            if err > 5.0 / win.FOCAL:
+                alt = hybrid_step(f)
+                if alt is None:
+                    return False
+                Rg, tg = rot_gated(alt[0], alt[1])
+                R_wc.append(Rg)
+                t_wc.append(tg)
+                continue
+            Rg, tg = rot_gated(_np(R).T, _np(tt))
+            R_wc.append(Rg)
+            t_wc.append(tg)
+
+        Rs_body = np.stack([Rc @ Rex_np.T for Rc in R_wc])
+        T_cam = np.stack(t_wc)
+        dbg = alignment.solve_gyroscope_bias(
+            self._t(Rs_body),
+            preints.jacobian[:, pre.O_R:pre.O_R + 3, pre.O_BG:pre.O_BG + 3],
+            preints.delta_q)
+        bg = _np(dbg)
+        # a solved bias ≫ any real MEMS gyro bias means corrupt visual
+        # rotations — fail init and retry on the next window
+        if np.linalg.norm(bg) > 0.15:
+            return False
+        preints = self._preintegrate_all(ba=np.zeros(3), bg=bg)
+        ok, g_b0, v_body = alignment.linear_alignment_with_depth(
+            self._t(Rs_body), self._t(T_cam), preints.delta_p, preints.delta_v,
+            preints.sum_dt, self._t(tex_n), cfg.g_norm)
+        if not bool(ok):
+            return False
+        return self._apply_alignment(Rs_body, T_cam, _np(v_body), g_b0, bg, tex_n)
+
+    def _apply_alignment(self, Rs_body, T_cam, v_body, g_b0, bg, tex_n) -> bool:
+        """Gravity-align the world frame and write the window state
+        (visualInitialAlign{,WithDepth}, estimator.cpp:1197-1262)."""
+        dt = self.cfg.dtype
+        R0 = _np(lie.g2R(g_b0))
+        yaw = _np(lie.rot_to_ypr(self._t(R0 @ Rs_body[0])))[0]
+        R0 = _np(lie.ypr_to_rot(self._t([-yaw, 0.0, 0.0]))) @ R0
+        Rs_w = np.einsum("ij,fjk->fik", R0, Rs_body)
+        P_w = (T_cam @ R0.T) - np.einsum("fij,j->fi", Rs_w, tex_n)
+        P_w = P_w - P_w[0]
+        V_w = np.einsum("fij,fj->fi", Rs_w, v_body)
+        Q_w = lie.rot_to_quat(self._t(Rs_w))
+        self.ws = dataclasses.replace(
+            self.ws, P=self._t(P_w), Q=Q_w, V=self._t(V_w),
+            Ba=torch.zeros((win.N_STATES, 3), dtype=dt, device=self.device),
+            Bg=self._t(bg)[None].repeat(win.N_STATES, 1))
+        # depths are re-triangulated with the aligned poses
+        for name in ("book_img", "book_evt"):
+            b = getattr(self, name)
+            setattr(self, name, dataclasses.replace(
+                b, depth_valid=torch.zeros_like(b.depth_valid),
+                inv_depth=torch.zeros_like(b.inv_depth)))
+        return True
+
+    # ------------------------------------------------------------- helpers
+    def _triangulate(self):
+        sc = self.cfg.use_stereo_correction
+        for name, key, ex_idx in (("book_img", "img", 0), ("book_evt", "evt", 1)):
+            b = fm.triangulate_stereo_instant(getattr(self, name), self._rrl[key],
+                                              self._trl[key], stereo_correction=sc)
+            setattr(self, name, fm.triangulate_multiview(b, self.ws, ex_idx))
+
+    def _frozen_mask(self):
+        """Ceres SetParameterBlockConstant analog (estimator.cpp:1848-1884)."""
+        cfg = self.cfg
+        frozen = np.zeros(win.DIM_ALL, bool)
+        if not cfg.estimate_extrinsic:
+            frozen[win.OFF_EX:win.OFF_TD] = True
+        elif self.n_solves < 30:
+            frozen[win.OFF_EX + 12:win.OFF_TD] = True
+        if not cfg.estimate_td:
+            frozen[win.OFF_TD] = True
+        self.n_solves += 1
+        return self._t(frozen, torch.bool)
+
+    def _imu_valid(self):
+        sums = np.array([self.imu_dt[k, :self.imu_n[k]].sum()
+                         for k in range(1, win.N_STATES)])
+        return self._t((sums > 0) & (sums <= 10.0), torch.bool)
+
+    def _failure_detection(self, post):
+        """Soft bias/velocity reset (failureDetection :1793-1825)."""
+        if np.linalg.norm(post["Ba"][WINDOW]) > 2.5 \
+                or np.linalg.norm(post["Bg"][WINDOW]) > 1.0:
+            self.failures += 1
+            self.ws = dataclasses.replace(
+                self.ws, Ba=torch.zeros_like(self.ws.Ba),
+                Bg=torch.zeros_like(self.ws.Bg), V=torch.zeros_like(self.ws.V))
+            post.update(V=_np(self.ws.V), Ba=_np(self.ws.Ba), Bg=_np(self.ws.Bg))
+
+    def _slide_host(self, marg_flag):
+        """Host (numpy) part of the slide: timestamps + IMU rings."""
+        if marg_flag == MARGIN_OLD:
+            self.timestamps[:-1] = self.timestamps[1:]
+            self.imu_dt[:-1] = self.imu_dt[1:]
+            self.imu_acc[:-1] = self.imu_acc[1:]
+            self.imu_gyr[:-1] = self.imu_gyr[1:]
+            self.imu_n[:-1] = self.imu_n[1:]
+            self.imu_n[-1] = 0
+        else:
+            k = WINDOW
+            n9, n10 = self.imu_n[k - 1], self.imu_n[k]
+            take = min(int(n10), self.cfg.imu_capacity - int(n9))
+            self.imu_dt[k - 1, n9:n9 + take] = self.imu_dt[k, :take]
+            self.imu_acc[k - 1, n9:n9 + take] = self.imu_acc[k, :take]
+            self.imu_gyr[k - 1, n9:n9 + take] = self.imu_gyr[k, :take]
+            self.imu_n[k - 1] = n9 + take
+            self.imu_n[k] = 0
+            self.timestamps[k - 1] = self.timestamps[k]
+
+    def _slide(self, marg_flag):
+        """Window slide (slideWindow, estimator.cpp:2650-2771)."""
+        self._slide_host(marg_flag)
+        if marg_flag == MARGIN_OLD:
+            marg_P, marg_Q = self.ws.P[0], self.ws.Q[0]
+            self.ws = _slide_old_state(self.ws)
+            ws = self.ws
+            self.book_img = fm.slide_old(self.book_img, marg_P, marg_Q, ws.P[0],
+                                         ws.Q[0], ws.ex_p[0], ws.ex_q[0])
+            self.book_evt = fm.slide_old(self.book_evt, marg_P, marg_Q, ws.P[0],
+                                         ws.Q[0], ws.ex_p[1], ws.ex_q[1])
+        else:
+            self.ws = _slide_second_state(self.ws)
+            self.book_img = fm.slide_second_new(self.book_img, win.N_STATES - 1)
+            self.book_evt = fm.slide_second_new(self.book_evt, win.N_STATES - 1)
+
+    def _output(self, t, marg_flag, post=None) -> Output:
+        k = min(self.frame_count, WINDOW)
+        if post is not None:
+            return Output(t=t, P=post["P"][k].copy(), Q=post["Q"][k].copy(),
+                          V=post["V"][k].copy(), solver_flag=self.solver_flag,
+                          marg_flag=marg_flag, n_tracked=post.get("n_tracked"))
+        return Output(t=t, P=_np(self.ws.P[k]), Q=_np(self.ws.Q[k]),
+                      V=_np(self.ws.V[k]), solver_flag=self.solver_flag,
+                      marg_flag=marg_flag)
+
+    def _post_fetch(self, n_tracked):
+        """One batched device→host fetch of what the post-solve host logic
+        needs this tick (failure gates, output pose, IMU-rate seed).  The
+        JAX estimator also fetches a keyframe snapshot for loop closure,
+        which is not ported."""
+        post = {n: _np(getattr(self.ws, n)) for n in ("P", "Q", "V", "Ba", "Bg")}
+        post["n_tracked"] = n_tracked
+        return post
