@@ -3,12 +3,18 @@
 
     python3 chip_smoke.py            # all phases, one card
 
-It builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
-against its plain PyTorch version on the card, drives the ESIO pipeline
-(stereo events + IMU -> trajectory) through `Pipeline.run` at the golden
-and at the bench size, times the event front end at DAVIS346 and DSEC size,
-and checks every result.  One line per phase, then a JSON line with the
-kernels, then as the last line
+It builds the port's CUDA kernels from csrc/ with nvcc (one process per
+source, all at once, printing ptxas's registers and spills), holds each
+kernel against its plain PyTorch version on the card and times it four
+ways by CUDA events: bare (the C entry point alone, launches captured in a
+CUDA graph), as the main path calls it (the wrapper), the plain version,
+and the one PyTorch call that computes the same function where there is
+one.  (chip_ab.py times other versions of the kernel sources against
+these in turns.)
+It then drives the ESIO pipeline (stereo events + IMU -> trajectory)
+through `Pipeline.run` at the golden and at the bench size, times the
+event front end at DAVIS346 and DSEC size, and checks every result.  One
+line per phase, then a JSON line with the kernels, then as the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -58,21 +64,53 @@ def _timed(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+# The card's peaks (H100 SXM data sheet, at 700 W): float32 FMA outside the
+# tensor cores (two FLOP each), and HBM.  Float compares and minimums issue
+# at 64 per clock per SM on sm_90, half the FMA's rate (CUDA C++ Programming
+# Guide, throughput of native arithmetic instructions): their peak is that
+# times the SMs times the card's maximum SM clock, read in phase 1.
+PEAK_F32 = 67e12          # FLOP/s
+PEAK_BYTES = 3.35e12      # B/s
+CMP_PER_CLOCK_PER_SM = 64
+
+
+def _bound(n_bytes, n_ops, peak_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over their peak rate."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # ---------------------------------------------------------------- phase 1
 def phase_device():
+    """Build every kernel, one nvcc per source, all started together; returns
+    the card's peak rate of float compares and minimums (per second)."""
     import torch
     from esvio_tpu_torch import _kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True)
+    mhz = float(clock.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak_cmp = CMP_PER_CLOCK_PER_SM * sms * mhz * 1e6
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
-    secs = _kernels.build(force=True)
-    _kernels.lib()
-    log(f"phase 1 device: ok, kernels built by nvcc in {secs:.1f} s "
-        f"({', '.join(_kernels.SOURCES)})")
+        f"count {torch.cuda.device_count()}, {sms} SMs at most {mhz:.0f} MHz: "
+        f"{peak_cmp / 1e12:.2f} T float compares/s")
+    secs, nvcc_log = _kernels.build(force=True)
+    for line in nvcc_log.splitlines():
+        if line.startswith("==") or "Used" in line or "spill" in line:
+            log(f"  {line.strip()}")
+    for k in _kernels.KERNELS:
+        k.fn()
+    log(f"phase 1 device: ok, {len(_kernels.KERNELS)} sources built by nvcc "
+        f"in {secs:.1f} s")
+    return peak_cmp
 
 
 # ---------------------------------------------------------------- phase 2
@@ -112,25 +150,51 @@ def _sae_from_events(H, W, device, seed, steps=24):
     return state
 
 
-def phase_corner_mask(device, shapes, main_shape):
+# the (H, W) of phase 2: a narrow strip, golden, bench, DAVIS346, DSEC
+K1_SHAPES = [(50, 170), (120, 160), (240, 320), (260, 346), (480, 640)]
+
+# float compares and minimums per pixel of the arc test, both circles:
+# argmax pass N-1, then 3 per step of the first phase and 4 per step of
+# the second (corners._newest_segment_size)
+K1_OPS_PER_PX = sum((n - 1) + 3 * (lo - 1) + 4 * (n - lo)
+                    for n, lo in ((16, 4), (20, 5)))
+
+
+def phase_corner_mask(device, shapes, main_shape, peak_cmp):
     import torch
+    from esvio_tpu_torch import _kernels
     from esvio_tpu_torch.events import corners
+    from esvio_tpu_torch.utils.metrics import graph_ms
     rows = {}
     for H, W in shapes:
         st = _sae_from_events(H, W, device, seed=H * W)
-        got = corners.corner_mask_cuda(st.sae)
-        want = corners.corner_mask_plain(st.sae)
+        sae = st.sae
+        got = corners.corner_mask_cuda(sae)
+        want = corners.corner_mask_plain(sae)
         torch.cuda.synchronize()
         n_diff = int((got != want).sum())
         n_corner = int(want.sum())
-        if n_diff or n_corner == 0:
+        if got.dtype != torch.bool or n_diff or n_corner == 0:
             raise AssertionError(f"K1 at (2, {H}, {W}): {n_diff} pixels differ "
-                                 f"from the plain version, {n_corner} corners")
-        ms = _timed(lambda: corners.corner_mask_cuda(st.sae), reps=200)
-        plain_ms = _timed(lambda: corners.corner_mask_plain(st.sae), reps=20)
-        rows[(H, W)] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+                                 f"from the plain version, {n_corner} corners, "
+                                 f"dtype {got.dtype}")
+        P = sae.shape[0]
+        fn = _kernels.CORNER_MASK.fn()
+        out = torch.empty((P, H, W), dtype=torch.bool, device=device)
+        launch = lambda: fn(sae.data_ptr(), out.data_ptr(), P, H, W,
+                            _kernels.stream_ptr(device))
+        ms = graph_ms(launch, reps=200)
+        wrapper_ms = _timed(lambda: corners.corner_mask_cuda(sae), reps=200)
+        plain_ms = _timed(lambda: corners.corner_mask_plain(sae), reps=20)
+        bound_ms, bound_by = _bound(P * H * W * (4 + 1), P * H * W * K1_OPS_PER_PX,
+                                    peak_cmp)
+        rows[(H, W)] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                            max_abs_err=0.0)
         log(f"  K1 corner_mask (2, {H}, {W}): equal everywhere, {n_corner} "
-            f"corner pixels; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+            f"corner pixels; bare {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}, {bound_ms / ms:.2%} reached)")
     log("phase 2 corner mask K1: ok")
     return rows[main_shape]
 
@@ -144,19 +208,46 @@ def _spd_problem(seed, n_sys, n=190, jitter=50.0):
     A = np.einsum("bij,bkj->bik", G, G) + jitter * np.eye(n, dtype=np.float32)
     b = rng.normal(0, 1, (n_sys, n)).astype(np.float32)
     lam = np.geomspace(1e-4, 10.0, n_sys).astype(np.float32)
-    x_ref = np.stack([np.linalg.solve(
-        (A[i] + lam[i] * np.eye(n)).astype(np.float64), b[i].astype(np.float64))
-        for i in range(n_sys)])
-    return A, b, lam, x_ref
+    return A, b, lam
+
+
+def _jacobi_problem(seed, n=190):
+    """An ill-conditioned system as solve_window hands it to K2: raw
+    H = D JᵀJ D with D over 1e-3..1e3 (condition ~1e12), Jacobi-scaled to a
+    unit diagonal (gauss_newton.py:334-356), damped by the LM's λ₀ = 1e-4."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    J = rng.normal(0, 1, (400, n))
+    D = np.geomspace(1e-3, 1e3, n)
+    H = (D[:, None] * (J.T @ J) * D[None, :]).astype(np.float32)
+    g = rng.normal(0, 1, n).astype(np.float32)
+    d_inv = (1.0 / np.sqrt(np.diag(H))).astype(np.float32)
+    Hs = (H * d_inv[None, :] * d_inv[:, None]).astype(np.float32)
+    return Hs[None], (g * d_inv)[None], np.full(1, 1e-4, np.float32)
+
+
+def _x64(A, b, lam):
+    import numpy as np
+    n = A.shape[-1]
+    return np.stack([np.linalg.solve(
+        A[i].astype(np.float64) + float(lam[i]) * np.eye(n), b[i].astype(np.float64))
+        for i in range(A.shape[0])])
 
 
 def phase_chol(device):
     import numpy as np
     import torch
+    from esvio_tpu_torch import _kernels
     from esvio_tpu_torch.solver import chol_solve as cs
+    from esvio_tpu_torch.utils.metrics import graph_ms
+    fn = _kernels.CHOL_SOLVE.fn()
+    n = cs.N
     rows = {}
-    for B in (1, 8):
-        A, b, lam, x_ref = _spd_problem(seed=B, n_sys=B)
+    cases = [(f"B={B}", *_spd_problem(seed=B, n_sys=B)) for B in (1, 4, 8)]
+    cases.append(("Jacobi-scaled B=1", *_jacobi_problem(seed=3)))
+    for label, A, b, lam in cases:
+        x_ref = _x64(A, b, lam)
+        B = A.shape[0]
         At, bt, lt = (torch.tensor(a, device=device) for a in (A, b, lam))
         x = cs.chol_solve_cuda(At, bt, lt)
         xp = cs.chol_solve_plain(At, bt, lt)
@@ -164,20 +255,39 @@ def phase_chol(device):
         x, xp = x.cpu().numpy(), xp.cpu().numpy()
         scale = np.abs(x_ref).max()
         rel = float(np.abs(x - x_ref).max() / scale)
-        rel_plain = float(np.abs(x - xp).max() / scale)
-        if not (rel < 5e-5 and rel_plain < 5e-5):
-            raise AssertionError(f"K2 B={B}: rel err {rel:.2e} vs float64, "
-                                 f"{rel_plain:.2e} vs plain")
-        ms = _timed(lambda: cs.chol_solve_cuda(At, bt, lt), reps=200)
+        rel_plain = float(np.abs(xp - x_ref).max() / scale)
+        if not (rel < 5e-5 and np.abs(x - xp).max() / scale < 5e-5):
+            raise AssertionError(f"K2 {label}: rel err {rel:.2e} vs float64, "
+                                 f"plain {rel_plain:.2e}")
+        if label.startswith("Jacobi"):
+            log(f"  K2 chol_solve {label} (raw condition ~1e12): rel err "
+                f"{rel:.2e} vs float64, plain {rel_plain:.2e}")
+            continue
+        xo = torch.empty((B, n), device=device)
+        launch = lambda: fn(At.data_ptr(), bt.data_ptr(), lt.data_ptr(),
+                            xo.data_ptr(), B, _kernels.stream_ptr(device))
+        ms = graph_ms(launch, reps=100)
+        wrapper_ms = _timed(lambda: cs.chol_solve_cuda(At, bt, lt), reps=200)
         plain_ms = _timed(lambda: cs.chol_solve_plain(At, bt, lt), reps=200)
-        rows[B] = dict(ms=ms, plain_ms=plain_ms,
-                       max_abs_err=float(np.abs(x - xp).max()))
-        log(f"  K2 chol_solve B={B} N=190: rel err {rel:.2e} vs float64, "
-            f"{rel_plain:.2e} vs plain; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+        Ad = At + lt[:, None, None] * torch.eye(n, device=device)
+        lib_solve = _timed(lambda: torch.linalg.solve(Ad, bt), reps=200)
+        lib_chol = _timed(lambda: torch.cholesky_solve(
+            bt[..., None], torch.linalg.cholesky_ex(Ad)[0]), reps=200)
+        flops = B * (2 * n ** 3 / 3 + 2 * n ** 2)
+        bound_ms, bound_by = _bound(4 * B * (n * n + 2 * n + 1), flops, PEAK_F32)
+        row = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                   library_ms=min(lib_solve, lib_chol), bound_ms=bound_ms,
+                   bound_by=bound_by, max_abs_err=float(np.abs(x - xp).max()))
+        rows[B] = row
+        log(f"  K2 chol_solve {label} N=190: rel err {rel:.2e} vs float64 "
+            f"(plain {rel_plain:.2e}); bare {ms:.4f} ms, wrapper "
+            f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms (solve {lib_solve:.4f}, cholesky_ex + "
+            f"cholesky_solve {lib_chol:.4f}), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}, {bound_ms / ms:.2%} reached)")
     # the NaN contract: an indefinite system comes back non-finite, its
     # neighbour stays finite
-    A, b, lam, _ = _spd_problem(seed=2, n_sys=2)
+    A, b, lam = _spd_problem(seed=2, n_sys=2)
     A[1] -= 500.0 * np.eye(190, dtype=np.float32)
     x = cs.chol_solve_cuda(*(torch.tensor(a, device=device) for a in (A, b, lam)))
     x = x.cpu().numpy()
@@ -256,7 +366,7 @@ def phase_bench_pipeline(device):
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the main path never ran: {launches}")
     log("phase 5 240x320 pipeline: ok")
-    return launches
+    return launches, ticks
 
 
 # ---------------------------------------------------------------- phase 6
@@ -346,20 +456,18 @@ def main():
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    phase_device()
-    k1 = phase_corner_mask(device, [(50, 170), (120, 160), (240, 320),
-                                    (260, 346), (480, 640)], (240, 320))
+    peak_cmp = phase_device()
+    k1 = phase_corner_mask(device, K1_SHAPES, (240, 320), peak_cmp)
     k2 = phase_chol(device)
     phase_golden(device)
-    launches = phase_bench_pipeline(device)
+    launches, ticks = phase_bench_pipeline(device)
     phase_frontend(device)
 
     kernels = []
     for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2)):
         kernels.append(dict(name=k.name, route="cuda", source=k.source,
                             replaces=k.replaces, launches=launches[k.name],
-                            max_abs_err=row["max_abs_err"], ms=row["ms"],
-                            plain_ms=row["plain_ms"]))
+                            launches_per_tick=launches[k.name] / ticks, **row))
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

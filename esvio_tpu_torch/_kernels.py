@@ -1,16 +1,19 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in csrc/ have a plain C interface.  At first use they are
-compiled by nvcc for Hopper into one shared library under
-esvio_tpu_torch/build/ and loaded with ctypes:
+Each source in csrc/ has a plain C interface.  At first use it is compiled
+by nvcc for Hopper into its own shared library under esvio_tpu_torch/build/
+(one nvcc per source, all started together) and loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/libesvio_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v \
+         -shared -Xcompiler -fPIC -o build/libchol_solve.so csrc/chol_solve.cu
 
 Each C entry point launches on the stream it is given and returns
-cudaGetLastError(); `check` raises if that is not 0.  Every kernel has a
-`Kernel` record whose `launches` counter its wrapper bumps once per launch,
-so a run can show that its main path went through the kernel.
+cudaGetLastError(); `check` raises if that is not 0.  SIGNATURES is the
+one record of every entry point's parameters, from which the ctypes
+argtypes are set (tests/test_torch_kernels.py holds it against the
+sources).  Every kernel has a `Kernel` record whose `launches` counter its
+wrapper bumps once per launch, so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -23,21 +26,45 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-LIB_PATH = os.path.join(BUILD_DIR, "libesvio_kernels.so")
-SOURCES = ("corner_mask.cu", "chol_solve.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+# parameter kinds of each extern "C" entry point: "ptr" (device pointer or
+# stream) or "int"; all return an int cudaError_t
+SIGNATURES = {
+    "esv_corner_mask": ("ptr", "ptr", "int", "int", "int", "ptr"),
+    "esv_chol_solve": ("ptr", "ptr", "ptr", "ptr", "int", "ptr"),
+}
+_CTYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int}
 
 
 class Kernel:
-    """A kernel of the port: its C symbol, its source and its launch count."""
+    """A kernel of the port: its C symbol, its source, its library and its
+    launch count."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
         self.name = name
         self.symbol = symbol
-        self.source = source
+        self.source = source                  # path in the repository
         self.replaces = replaces
         self.launches = 0
+        self._fn = None
+
+    @property
+    def src_path(self) -> str:
+        return os.path.join(CSRC, os.path.basename(self.source))
+
+    @property
+    def lib_path(self) -> str:
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        return os.path.join(BUILD_DIR, f"lib{stem}.so")
+
+    def fn(self):
+        """The C entry point (its library built first if needed)."""
+        if self._fn is None:
+            build()
+            self._fn = entry_point(self.lib_path, self.symbol)
+        return self._fn
 
 
 CORNER_MASK = Kernel(
@@ -48,12 +75,19 @@ CHOL_SOLVE = Kernel(
     "esvio_tpu/solver/chol_pallas.py:145")
 KERNELS = (CORNER_MASK, CHOL_SOLVE)
 
-_lib = None
-
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+
+
+def entry_point(lib_path: str, symbol: str):
+    """`symbol` of the library at lib_path, with argtypes from SIGNATURES
+    and an int return."""
+    f = getattr(ctypes.CDLL(lib_path), symbol)
+    f.argtypes = [_CTYPES[k] for k in SIGNATURES[symbol]]
+    f.restype = ctypes.c_int
+    return f
 
 
 def _nvcc() -> str:
@@ -63,45 +97,35 @@ def _nvcc() -> str:
     return path
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
-        return True
-    built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(os.path.join(CSRC, s)) > built
-               for s in SOURCES)
-
-
-def build(force: bool = False) -> float:
-    """Compile csrc/ into build/libesvio_kernels.so unless it is up to date
-    (or `force`).  Returns the seconds spent compiling (0.0 when nothing was
-    built)."""
-    if not (force or _stale()):
-        return 0.0
+def build(force: bool = False) -> tuple[float, str]:
+    """Compile every kernel whose library is missing or older than its
+    source (every kernel when `force`), one nvcc per source, all started
+    together.  Returns the wall seconds and nvcc's output (the ptxas lines:
+    registers, spills, shared memory); raises if one fails."""
+    stale = [k for k in KERNELS if force or not os.path.exists(k.lib_path)
+             or os.path.getmtime(k.src_path) > os.path.getmtime(k.lib_path)]
+    if not stale:
+        return 0.0, ""
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIB_PATH + f".{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0
-
-
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
-    global _lib
-    if _lib is None:
-        build()
-        handle = ctypes.CDLL(LIB_PATH)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        handle.esv_corner_mask.argtypes = [vp, vp, ci, ci, ci, vp]
-        handle.esv_corner_mask.restype = ci
-        handle.esv_chol_solve.argtypes = [vp, vp, vp, ci, vp]
-        handle.esv_chol_solve.restype = ci
-        _lib = handle
-    return _lib
+    procs = []
+    for k in stale:
+        tmp = k.lib_path + f".{os.getpid()}.tmp"
+        procs.append((k, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, k.src_path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for k, tmp, proc in procs:
+        log = proc.communicate()[0]
+        logs.append(f"== {os.path.basename(k.src_path)}\n{log}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {k.src_path} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, k.lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - t0, "".join(logs)
 
 
 def stream_ptr(device) -> int:

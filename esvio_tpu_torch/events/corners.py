@@ -111,20 +111,20 @@ def corner_mask_plain(sae: torch.Tensor) -> torch.Tensor:
 
 def corner_mask_cuda(sae: torch.Tensor) -> torch.Tensor:
     """Launch kernel K1 on a CUDA (P, H, W) float32 SAE → (P, H, W) bool."""
-    if not sae.is_cuda:
-        raise ValueError("corner_mask_cuda needs a CUDA tensor")
     if sae.dtype != torch.float32 or sae.dim() != 3:
         raise ValueError(f"corner_mask_cuda takes (P, H, W) float32, got "
                          f"{tuple(sae.shape)} {sae.dtype}")
-    sae = sae.contiguous()
+    if not sae.is_contiguous():
+        raise ValueError("corner_mask_cuda takes a contiguous SAE")
+    if not sae.is_cuda:
+        raise ValueError("corner_mask_cuda needs a CUDA tensor")
     P, H, W = sae.shape
-    out = torch.empty((P, H, W), dtype=torch.uint8, device=sae.device)
-    lib = _kernels.lib()
-    err = lib.esv_corner_mask(sae.data_ptr(), out.data_ptr(), P, H, W,
-                              _kernels.stream_ptr(sae.device))
+    out = torch.empty((P, H, W), dtype=torch.bool, device=sae.device)
+    err = _kernels.CORNER_MASK.fn()(sae.data_ptr(), out.data_ptr(), P, H, W,
+                                    _kernels.stream_ptr(sae.device))
     _kernels.check(err, _kernels.CORNER_MASK)
     _kernels.CORNER_MASK.launches += 1
-    return out.bool()
+    return out
 
 
 def corner_mask(state: SAEState) -> torch.Tensor:

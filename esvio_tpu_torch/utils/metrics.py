@@ -79,3 +79,26 @@ class Metrics:
                 out[f"{k}.p95"] = s[min(len(s) - 1, int(len(s) * 0.95))]
                 out[f"{k}.max"] = s[-1]
         return out
+
+
+def graph_ms(launch, reps: int) -> float:
+    """Device ms per launch of `launch()`: `reps` launches captured in one
+    CUDA graph and replayed three times between CUDA events, so the host's
+    launch cost leaves no gaps between them."""
+    launch()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            launch()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+

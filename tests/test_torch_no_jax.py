@@ -1,6 +1,6 @@
 """The port stands without JAX: in a fresh interpreter where `import jax`
 fails, every module of esvio_tpu_torch imports, two ESIO pipeline ticks run
-on the CPU, and chip_smoke imports (without running).  Nothing of jax or
+on the CPU, and chip_smoke and chip_ab import (without running).  Nothing of jax or
 esvio_tpu may be loaded along the way."""
 import os
 import subprocess
@@ -23,7 +23,7 @@ SCRIPT = textwrap.dedent("""
                                              duration=0.3)
     res = make_pipeline().run(seq, max_frames=2)
     assert res.metrics["ticks"] == 2, res.metrics
-    import chip_smoke
+    import chip_smoke, chip_ab
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and m.split(".")[0] in ("jax", "jaxlib", "esvio_tpu")]
     assert not loaded, loaded
