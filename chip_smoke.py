@@ -12,9 +12,15 @@ and the one PyTorch call that computes the same function where there is
 one.  (chip_ab.py times other versions of the kernel sources against
 these in turns.)
 It then drives the ESIO pipeline (stereo events + IMU -> trajectory)
-through `Pipeline.run` at the golden and at the bench size, times the
-event front end at DAVIS346 and DSEC size, and checks every result.  One
-line per phase, then a JSON line with the kernels, then as the last line
+through `Pipeline.run` at the golden and at the bench size on the default
+fused path (segment A of every steady estimator tick a CUDA graph replay),
+times the event front end at DAVIS346 and DSEC size, drives the bench size
+once more on the general path (fused=False), and replays that run's
+estimator calls to hold the graph replay against the eager fused tick and
+to count, per steady tick of each path, host syncs (sync debug mode) and
+device operations (torch.profiler), with the card's idle share.  It checks
+every result.  One line per phase, then a JSON line with the kernels, then
+as the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -300,6 +306,15 @@ def phase_chol(device):
 
 
 # ---------------------------------------------------------------- phase 4/5
+def _graph_use(pipe):
+    """(captures, replays) of the pipeline's fused-tick CUDA graphs; fails
+    unless the steady ticks went through graph replays."""
+    gr = pipe.estimator._graphs
+    if gr is None or gr.n_replays == 0 or gr.n_captures == 0:
+        raise AssertionError("no steady estimator tick was a CUDA graph replay")
+    return gr.n_captures, gr.n_replays
+
+
 def phase_golden(device):
     import torch
     from synth_np import GOLDEN, esio_pipeline, golden_gates
@@ -315,12 +330,14 @@ def phase_golden(device):
     k2 = _kernels.CHOL_SOLVE.launches
     g = golden_gates(res, gt_t, gt_P, GOLDEN_NPZ)
     ticks = res.metrics["ticks"]
-    log(f"  golden ESIO 120x160 1.6 s: {ticks:.0f} ticks in {wall:.2f} s "
+    caps, reps = _graph_use(pipe)
+    log(f"  golden ESIO 120x160 1.6 s (fused): {ticks:.0f} ticks in {wall:.2f} s "
         f"({ticks / wall:.2f} ticks/s, cold), {g['n_stamps']} NON_LINEAR "
         f"stamps (golden {g['n_golden']}), max dev {g['max_dev_4dof']:.4f} m "
         f"after yaw {g['yaw_deg']:.2f} deg + shift {g['shift_m']:.4f} m "
         f"({g['max_dev']:.4f} m unaligned), ATE {g['ate']:.4f} m (golden "
-        f"{g['ate_golden']:.4f} m); launches K1 {k1}, K2 {k2}")
+        f"{g['ate_golden']:.4f} m); launches K1 {k1}, K2 {k2}; fused-tick "
+        f"graphs: {caps} captured, {reps} replays")
     if not g["stamps_ok"]:
         raise AssertionError("golden: NON_LINEAR stamps differ")
     if not g["ate_ok"]:
@@ -334,39 +351,258 @@ def phase_golden(device):
     log("phase 4 golden pipeline: ok")
 
 
-def phase_bench_pipeline(device):
-    """The bench.py pipeline (240x320, focal 320, 2.4 s): the main path whose
-    kernel launches the JSON line reports."""
+def _bench_run(pipe, seq, gt_t, gt_P, label):
+    """Run one 240x320 pipeline, check its trajectory, log its rates."""
     import numpy as np
     import torch
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = res.metrics["ticks"]
+    n_nl = len(res.stamps)
+    if n_nl == 0 or res.n_restarts:
+        raise AssertionError(f"240x320 pipeline ({label}): {n_nl} NON_LINEAR "
+                             f"ticks, {res.n_restarts} restarts")
+    P = np.asarray(res.P)
+    if not np.isfinite(P).all() or P.shape != (n_nl, 3):
+        raise AssertionError(f"240x320 pipeline ({label}): bad trajectory "
+                             f"{P.shape}")
+    ate = res.ate(gt_t, gt_P)
+    rate = ticks / wall
+    log(f"  ESIO 240x320 2.4 s ({label}): {ticks:.0f} ticks, {n_nl} NON_LINEAR, "
+        f"ATE {ate:.4f} m, {rate:.2f} ticks/s, realtime x{rate / 15.0:.3f} "
+        f"at 15 Hz; estimator {res.stage_times['estimator']['mean_ms']:.1f} "
+        f"ms/tick; stage ms/tick {json.dumps(res.stage_times)}")
+    return ticks, ate
+
+
+def phase_bench_pipeline(device):
+    """The bench.py pipeline (240x320, focal 320, 2.4 s) on the default fused
+    path: the main path whose kernel launches the JSON line reports."""
     from synth_np import BENCH, esio_pipeline
     from esvio_tpu_torch import _kernels
     make_pipeline, seq, gt_t, gt_P = esio_pipeline(device, **BENCH)
     make_pipeline().run(seq)                     # cold run: first launches
     pipe = make_pipeline()
     _kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = pipe.run(seq)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    ticks, ate = _bench_run(pipe, seq, gt_t, gt_P, "fused, warm")
     launches = {k.name: k.launches for k in _kernels.KERNELS}
-    ticks = res.metrics["ticks"]
-    n_nl = len(res.stamps)
-    if n_nl == 0:
-        raise AssertionError("240x320 pipeline never reached NON_LINEAR")
-    P = np.asarray(res.P)
-    if not np.isfinite(P).all() or P.shape != (n_nl, 3):
-        raise AssertionError(f"240x320 pipeline: bad trajectory {P.shape}")
-    ate = res.ate(gt_t, gt_P)
-    rate = ticks / wall
-    log(f"  ESIO 240x320 2.4 s (warm): {ticks:.0f} ticks, {n_nl} NON_LINEAR, "
-        f"ATE {ate:.4f} m, {rate:.2f} ticks/s, realtime x{rate / 15.0:.3f} "
-        f"at 15 Hz; stage ms/tick {json.dumps(res.stage_times)}; "
-        f"launches {launches}")
+    caps, reps = _graph_use(pipe)
+    log(f"  launches {launches}; fused-tick graphs: {caps} captured, "
+        f"{reps} replays")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the main path never ran: {launches}")
     log("phase 5 240x320 pipeline: ok")
-    return launches, ticks
+    return launches, ticks, ate
+
+
+def phase_general_pipeline(device, ate_fused):
+    """The same 240x320 run on the general path (fused=False), with every
+    estimator call recorded for phase 8."""
+    from synth_np import BENCH, esio_pipeline
+    make_pipeline, seq, gt_t, gt_P = esio_pipeline(device, fused=False, **BENCH)
+    pipe = make_pipeline()
+    calls = _record_calls(pipe.estimator)
+    _, ate = _bench_run(pipe, seq, gt_t, gt_P, "general, warm")
+    if abs(ate - ate_fused) > 0.01:
+        raise AssertionError(f"ATE general {ate:.4f} m, fused {ate_fused:.4f} m")
+    log("phase 7 240x320 pipeline, general path: ok")
+    return pipe, calls
+
+
+# ---------------------------------------------------------------- phase 8
+def _record_calls(est):
+    """Record the estimator calls a pipeline makes, packets cloned, into a
+    list of ticks, each a list of (method name, args)."""
+    import dataclasses
+    ticks = [[]]
+
+    def wrap(name):
+        real = getattr(est, name)
+
+        def recorded(*args):
+            args = tuple(dataclasses.replace(a, **{
+                f.name: getattr(a, f.name).clone()
+                for f in dataclasses.fields(a)})
+                if dataclasses.is_dataclass(a) else a for a in args)
+            ticks[-1].append((name, args))
+            if name == "update_latest":
+                ticks.append([])
+            return real(*args)
+        setattr(est, name, recorded)
+
+    for name in ("process_imu_and_predict", "process_packets", "update_latest"):
+        wrap(name)
+    return ticks
+
+
+def _play(est, tick):
+    """One recorded tick into `est`; returns its process_packets Output."""
+    out = None
+    for name, args in tick:
+        r = getattr(est, name)(*args)
+        if name == "process_packets":
+            out = r
+    return out
+
+
+def _steady(est):
+    from esvio_tpu_torch.vio import estimator as est_mod
+    return est.solver_flag == "NON_LINEAR" and est.frame_count == est_mod.WINDOW
+
+
+def _clone(est, **cfg):
+    """A new estimator on est's state (its own graphs), cfg fields replaced."""
+    import copy
+    import dataclasses
+    from esvio_tpu_torch.vio import estimator as est_mod
+    from esvio_tpu_torch.vio.fused_graph import clone_state
+    c = est_mod.Estimator(dataclasses.replace(est.cfg, **cfg),
+                          est.ws.ex_p.cpu().numpy(), est.ws.ex_q.cpu().numpy(),
+                          est.device, imu_params=est.imu_params)
+    for name in ("ws", "book_img", "book_evt", "prior"):
+        setattr(c, name, clone_state(getattr(est, name)))
+    for name in ("frame_count", "solver_flag", "timestamps", "imu_dt", "imu_acc",
+                 "imu_gyr", "imu_n", "acc0", "gyr0", "first_imu", "last_marg",
+                 "failures", "_prior_valid", "_seen_img", "_post", "n_solves",
+                 "lanes_dropped", "_latest", "_imu_replay"):
+        setattr(c, name, copy.deepcopy(getattr(est, name)))
+    return c
+
+
+def _syncs(est, ticks):
+    """Host syncs per tick of `ticks` played into est (sync debug mode), and
+    the source lines that made them."""
+    import collections
+    import warnings
+    import torch
+    where = collections.Counter()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for tick in ticks:
+                _play(est, tick)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = os.path.relpath(w.filename, ROOT)
+            if path.startswith(".."):                  # outside the repo
+                path = "/".join(w.filename.split(os.sep)[-3:])
+            where[f"{path}:{w.lineno}"] += 1
+    return sum(where.values()) / len(ticks), where
+
+
+def _device_ops(est, ticks):
+    """(device operations per tick, busy ms, wall ms) of `ticks` played into
+    est under torch.profiler (CUDA activity): kernels, copies and fills;
+    busy is the union of their intervals, wall the profiled host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tick in ticks:
+            _play(est, tick)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return len(spans) / len(ticks), busy / 1e3, wall * 1e3
+
+
+def phase_fused_tick(calls):
+    """Replays phase 7's estimator calls into fresh fused estimators: the
+    graph replay against the eager fused tick over 3 steady ticks from one
+    state; host syncs, device operations and the card's idle share per
+    steady tick, fused against general."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from esvio_tpu_torch.vio import estimator as est_mod
+    pipe, ticks = calls
+    ticks = [t for t in ticks if t]
+    est = est_mod.Estimator(dataclasses.replace(pipe.est_cfg, fused=True),
+                            *pipe._ex, pipe.device, imu_params=pipe._imu_params)
+    k, warm = 0, 0
+    while warm < 4:                               # 4 warm steady ticks
+        warm += _steady(est)
+        _play(est, ticks[k])
+        k += 1
+    blocks = [ticks[k + 3 * i:k + 3 * i + 3] for i in range(4)]
+    if len(blocks[-1]) < 3:
+        raise AssertionError(f"{len(ticks)} ticks: too few steady ones")
+
+    # graph replay against the eager fused tick, from one state
+    eager = _clone(est)
+    eager._graphs = None
+    worst = 0.0
+    for tick in blocks[0]:
+        if not _steady(est):
+            raise AssertionError("phase 8 left the steady state")
+        a, b = _play(est, tick), _play(eager, tick)
+        for f in ("P", "Q", "V"):
+            worst = max(worst, float(np.abs(getattr(a, f) - getattr(b, f)).max()))
+        for f in ("marg_old", "n_trk", "n_drop_e", "fail", "num", "kf_ids",
+                  "kf_obs", "kf_valid"):
+            if not np.array_equal(est._post[f], eager._post[f]):
+                raise AssertionError(f"graph replay and eager tick differ in {f}")
+        if a.marg_flag != b.marg_flag:
+            raise AssertionError("graph replay and eager tick: marg flags differ")
+    if worst > 1e-6:
+        raise AssertionError(f"graph replay vs eager tick: {worst:.3e} on P/Q/V")
+    log(f"  graph replay vs eager fused tick, 3 steady ticks: max |diff| of "
+        f"P, Q, V {worst:.3e}, integer post fields equal")
+
+    # host syncs per steady tick
+    general = _clone(est, fused=False)
+    s_f, where_f = _syncs(est, blocks[1])
+    s_g, where_g = _syncs(general, blocks[1])
+    log(f"  host syncs per steady tick: fused {s_f:.2f} ({dict(where_f)}), "
+        f"general {s_g:.2f} (top {where_g.most_common(6)})")
+
+    # device operations, busy share, estimator ms per steady tick
+    general = _clone(est, fused=False)
+    n_f, busy_f, wall_f = _device_ops(est, blocks[2])
+    n_g, busy_g, wall_g = _device_ops(general, blocks[2])
+    seg_b = [0.0]
+    real_b = est_mod._fused_segment_b
+
+    def timed_b(*args):
+        t1 = time.perf_counter()
+        out = real_b(*args)
+        torch.cuda.synchronize()
+        seg_b[0] += time.perf_counter() - t1
+        return out
+
+    est_mod._fused_segment_b = timed_b
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tick in blocks[3]:
+            _play(est, tick)
+        torch.cuda.synchronize()
+    finally:
+        est_mod._fused_segment_b = real_b
+    ms_f = (time.perf_counter() - t0) * 1e3 / 3
+    log(f"  device operations per steady tick: fused {n_f:.0f}, general "
+        f"{n_g:.0f}; busy {busy_f / 3:.1f} of {wall_f / 3:.1f} ms profiled "
+        f"wall per tick (idle {1 - busy_f / wall_f:.1%}) fused, "
+        f"{busy_g / 3:.1f} of {wall_g / 3:.1f} ms (idle "
+        f"{1 - busy_g / wall_g:.1%}) general")
+    log(f"  fused steady tick unprofiled {ms_f:.1f} ms (IMU feed, update_latest "
+        f"included), of which segment B {seg_b[0] * 1e3 / 3:.1f} ms; idle "
+        f"{1 - busy_f / 3 / ms_f:.1%} of it at the profiled busy time")
+    if n_f == 0 or n_g == 0:
+        raise AssertionError("the profiler saw no device operation")
+    log("phase 8 fused tick: ok")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -460,8 +696,10 @@ def main():
     k1 = phase_corner_mask(device, K1_SHAPES, (240, 320), peak_cmp)
     k2 = phase_chol(device)
     phase_golden(device)
-    launches, ticks = phase_bench_pipeline(device)
+    launches, ticks, ate = phase_bench_pipeline(device)
     phase_frontend(device)
+    calls = phase_general_pipeline(device, ate)
+    phase_fused_tick(calls)
 
     kernels = []
     for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2)):

@@ -130,8 +130,7 @@ def quat_from_two_vectors(a, b):
     c = _cross(a, b)
     d = torch.sum(a * b, dim=-1, keepdim=True)
     w = 1.0 + d
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
+    ex, ey, _ = torch.eye(3, dtype=a.dtype, device=a.device)
     perp = _cross(a, ex.expand(a.shape))
     small = torch.linalg.vector_norm(perp, dim=-1, keepdim=True) < 1e-6
     perp = torch.where(small, _cross(a, ey.expand(a.shape)), perp)
@@ -249,7 +248,7 @@ def ypr_to_rot(ypr):
 def g2R(g):
     """World-from-IMU rotation aligning measured gravity g with +z, yaw
     removed (Utility::g2R)."""
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
+    ez = torch.eye(3, dtype=g.dtype, device=g.device)[2]
     R0 = quat_to_rot(quat_from_two_vectors(g, ez.expand(g.shape)))
     yaw = rot_to_ypr(R0)[..., 0]
     zero = torch.zeros_like(yaw)

@@ -4,8 +4,8 @@ integration_base.h:54-157).
 
 The sample buffer of each interval is integrated by a Python loop over the
 masked, fixed-capacity sample axis; intervals are a leading batch axis.
-The loop stops after the last real sample (trailing padding steps are
-no-ops by the mask).
+The caller may stop the loop after the last real sample it knows of
+(trailing padding steps are no-ops by the mask).
 
 Error-state ordering: [p, θ, v, ba, bg]; noise ordering (18):
 [na0, ng0, na1, ng1, nba, nbg].
@@ -136,22 +136,27 @@ def midpoint_step(dt, acc_0, gyr_0, acc_1, gyr_1, delta_p, delta_q, delta_v,
 
 
 def preintegrate_batch(dts, accs, gyrs, acc0, gyr0, ba, bg,
-                       params: ImuParams, mask) -> Preintegrated:
+                       params: ImuParams, mask, n_steps=None) -> Preintegrated:
     """Integrate K intervals at once.
 
     dts (K, N); accs/gyrs (K, N, 3) (acc_1 of each step); acc0/gyr0 (K, 3)
     the sample at interval start; ba/bg (K, 3) linearization biases;
-    mask (K, N) bool — True for real samples (padding steps are skipped)."""
+    mask (K, N) bool — True for real samples (padding steps are skipped).
+
+    n_steps: how many leading steps to run (all N by default), at least the
+    longest interval's sample count: later steps are no-ops by the mask, so
+    any larger value gives the same result.  The estimator passes it from
+    its host-side sample counts."""
     dtype, dev = accs.dtype, accs.device
     K, N = dts.shape
     noise = _noise_cov(params, dtype)
     dts = dts.to(dtype)
     mask = mask.to(torch.bool)
-    # steps after the last real sample of every interval are no-ops
-    n_steps = int(torch.nonzero(mask.any(0)).max()) + 1 if bool(mask.any()) else 0
+    if n_steps is None:
+        n_steps = N
 
     dp = torch.zeros((K, 3), dtype=dtype, device=dev)
-    dq = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev).repeat(K, 1)
+    dq = torch.eye(1, 4, dtype=dtype, device=dev).repeat(K, 1)
     dv = torch.zeros((K, 3), dtype=dtype, device=dev)
     jac = torch.eye(15, dtype=dtype, device=dev).repeat(K, 1, 1)
     cov = torch.zeros((K, 15, 15), dtype=dtype, device=dev)

@@ -51,8 +51,9 @@ def imu_sqrt_info(covariance):
     Cholesky fails (as the JAX/LAPACK path returns)."""
     dim = covariance.shape[-1]
     eye = torch.eye(dim, dtype=covariance.dtype, device=covariance.device)
-    cov_inv = torch.linalg.solve(covariance + 1e-12 * eye,
-                                 eye.expand(covariance.shape))
+    # solve_ex: linalg.solve would check `info` on the host
+    cov_inv = torch.linalg.solve_ex(covariance + 1e-12 * eye,
+                                    eye.expand(covariance.shape))[0]
     cov_inv = 0.5 * (cov_inv + cov_inv.transpose(-1, -2))
     L, info = torch.linalg.cholesky_ex(cov_inv)
     L = torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))

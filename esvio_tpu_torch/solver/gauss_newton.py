@@ -16,6 +16,7 @@ oracles of the JAX package), the eigh branch of `reduced_solve` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -61,9 +62,12 @@ def _at_start(a, start):
     return torch.gather(a, 1, idx)[:, 0]
 
 
+@functools.lru_cache(maxsize=None)
 def _imu_onehot(dtype, device):
     """(10, 30, DIM_ALL) one-hot column selector of each IMU factor's
-    parameter layout [pose_k 6 | sb_k 9 | pose_k+1 6 | sb_k+1 9]."""
+    parameter layout [pose_k 6 | sb_k 9 | pose_k+1 6 | sb_k+1 9].  Built
+    once per dtype and device: its copy to the device must not fall inside
+    a CUDA graph capture."""
     E = torch.zeros((WINDOW, 30, DIM_ALL), dtype=dtype)
     for k in range(WINDOW):
         cols = (list(range(k * 6, k * 6 + 6))
@@ -275,7 +279,8 @@ def reduced_solve(Hr, br, lam_damp):
     by LM-damped Cholesky.  A failed factorization yields non-finite dx,
     which the LM accept test rejects (then λ×100).  Returns (dx, finite)."""
     n = Hr.shape[0]
-    lam = torch.as_tensor(lam_damp, dtype=Hr.dtype, device=Hr.device)
+    lam = lam_damp if torch.is_tensor(lam_damp) else torch.full(
+        (), lam_damp, dtype=Hr.dtype, device=Hr.device)
     if Hr.dtype == torch.float32 and n == DIM_ALL:
         dx = -chol_solve(Hr, br, lam)
     else:
@@ -326,7 +331,7 @@ def solve_window(state: WindowState, book_img: FeatureBook,
 
     sys_acc = assemble(state, book_img, book_evt)
     lam0, lam_floor = damping_schedule(dtype)
-    lam_damp = torch.as_tensor(lam0, dtype=dtype, device=state.P.device)
+    lam_damp = torch.full((), lam0, dtype=dtype, device=state.P.device)
     costs = []
     for _ in range(iters):
         Hpp_r, Hpl_r, hll_r, bp_r, bl_r, cost2 = sys_acc

@@ -12,6 +12,7 @@ eigendecomposition (pseudo-inverse with eps 1e-8, J₀ = S^{1/2}Vᵀ).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -33,13 +34,21 @@ def _eigh(A):
 
 
 def _pose_cols(k):
-    return list(range(k * 6, k * 6 + 6))
+    return tuple(range(k * 6, k * 6 + 6))
 
 
 def _sb_cols(k):
-    return list(range(OFF_SB + k * 9, OFF_SB + k * 9 + 9))
+    return tuple(range(OFF_SB + k * 9, OFF_SB + k * 9 + 9))
 
 
+@functools.lru_cache(maxsize=None)
+def _index(idx: tuple, device) -> torch.Tensor:
+    """An index tuple as an int64 tensor on `device`, copied there once:
+    each host-to-device copy of a fresh index would wait for the device."""
+    return torch.tensor(idx, dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _perm_shift_old():
     """new-layout index → old-layout index after MARGIN_OLD (-1 = free)."""
     perm = [-1] * DIM_ALL
@@ -50,9 +59,10 @@ def _perm_shift_old():
             perm[OFF_SB + k * 9 + a] = OFF_SB + (k + 1) * 9 + a
     for a in range(OFF_EX, DIM_ALL):
         perm[a] = a
-    return perm
+    return tuple(perm)
 
 
+@functools.lru_cache(maxsize=None)
 def _perm_shift_second_new():
     """new ← old for MARGIN_SECOND_NEW: slot WINDOW-1 ← slot WINDOW."""
     perm = [-1] * DIM_ALL
@@ -67,12 +77,12 @@ def _perm_shift_second_new():
         perm[OFF_SB + (WINDOW - 1) * 9 + a] = OFF_SB + WINDOW * 9 + a
     for a in range(OFF_EX, DIM_ALL):
         perm[a] = a
-    return perm
+    return tuple(perm)
 
 
 def _apply_perm(A, b, perm):
     """Re-index (A, b) from the old layout into the new; -1 slots are zero."""
-    p = torch.tensor(perm, dtype=torch.int64, device=A.device)
+    p = _index(perm, A.device)
     safe = torch.clamp(p, min=0)
     mask = (p >= 0).to(A.dtype)
     return (A[safe][:, safe] * mask[:, None] * mask[None, :], b[safe] * mask)
@@ -81,11 +91,10 @@ def _apply_perm(A, b, perm):
 def _schur_eliminate(A, b, m_idx, eps=_EPS):
     """Eliminate the index set m_idx via the eigen pseudo-inverse; rows and
     columns of m come back zeroed in the full-size layout."""
-    n = A.shape[0]
-    dev = A.device
     m_set = set(m_idx)
-    r_idx = torch.tensor([i for i in range(n) if i not in m_set], device=dev)
-    m_idx = torch.tensor(m_idx, device=dev)
+    r_idx = _index(tuple(i for i in range(A.shape[0]) if i not in m_set),
+                   A.device)
+    m_idx = _index(m_idx, A.device)
 
     Amm = A[m_idx][:, m_idx]
     Amm = 0.5 * (Amm + Amm.T)

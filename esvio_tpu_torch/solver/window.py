@@ -51,7 +51,7 @@ class WindowState:
 
 
 def init_window(device, dtype=torch.float32) -> WindowState:
-    q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    q = torch.eye(1, 4, dtype=dtype, device=device)
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     return WindowState(P=z(N_STATES, 3), Q=q.repeat(N_STATES, 1),
                        V=z(N_STATES, 3), Ba=z(N_STATES, 3), Bg=z(N_STATES, 3),

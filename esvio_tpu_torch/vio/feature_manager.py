@@ -76,7 +76,7 @@ def insert_packet(book: FeatureBook, ids, valid, un, vel, right_valid, un_r,
         un_r=upd(book.un_r, un_r), vel_r=upd(book.vel_r, vel_r),
         obs=upd(book.obs, torch.ones_like(valid)),
         stereo=upd(book.stereo, stereo_new),
-        td_obs=upd(book.td_obs, torch.as_tensor(td, device=dev).expand(ids.shape)),
+        td_obs=upd(book.td_obs, td.expand(ids.shape)),
         ids=upd_lane(book.ids, ids),
         active=upd_lane(book.active, torch.ones_like(valid)),
         inv_depth=upd_lane(book.inv_depth,
@@ -109,6 +109,49 @@ def mean_parallax(book: FeatureBook, frame_count: int):
 # triangulation (:5-121 getDepth, :809-948)
 # ---------------------------------------------------------------------------
 
+def _adjugate4(a):
+    """Adjugate of (N, 4, 4) matrices by 2 × 2 sub-determinants."""
+    (a00, a01, a02, a03), (a10, a11, a12, a13), \
+        (a20, a21, a22, a23), (a30, a31, a32, a33) = \
+        (r.unbind(-1) for r in a.unbind(-2))
+    s0, s1, s2 = a00 * a11 - a10 * a01, a00 * a12 - a10 * a02, a00 * a13 - a10 * a03
+    s3, s4, s5 = a01 * a12 - a11 * a02, a01 * a13 - a11 * a03, a02 * a13 - a12 * a03
+    c0, c1, c2 = a20 * a31 - a30 * a21, a20 * a32 - a30 * a22, a20 * a33 - a30 * a23
+    c3, c4, c5 = a21 * a32 - a31 * a22, a21 * a33 - a31 * a23, a22 * a33 - a32 * a23
+    rows = [
+        [a11 * c5 - a12 * c4 + a13 * c3, -a01 * c5 + a02 * c4 - a03 * c3,
+         a31 * s5 - a32 * s4 + a33 * s3, -a21 * s5 + a22 * s4 - a23 * s3],
+        [-a10 * c5 + a12 * c2 - a13 * c1, a00 * c5 - a02 * c2 + a03 * c1,
+         -a30 * s5 + a32 * s2 - a33 * s1, a20 * s5 - a22 * s2 + a23 * s1],
+        [a10 * c4 - a11 * c2 + a13 * c0, -a00 * c4 + a01 * c2 - a03 * c0,
+         a30 * s4 - a31 * s2 + a33 * s0, -a20 * s4 + a21 * s2 - a23 * s0],
+        [-a10 * c3 + a11 * c1 - a12 * c0, a00 * c3 - a01 * c1 + a02 * c0,
+         -a30 * s3 + a31 * s1 - a32 * s0, a20 * s3 - a21 * s1 + a22 * s0]]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def _null_vector(A):
+    """Unit v minimising |A v| for A (N, R, 4): the right singular vector of
+    the smallest singular value, SVD's last row of Vh up to sign.
+
+    Taken in float64 as the dominant eigenvector of adj(AᵀA + sI), raised to
+    the 4096th power by twelve squarings (the other directions fall by their
+    eigenvalue ratio to the 4096th: below 1e-10 for ratios up to 0.994); of
+    ties the last axis wins, as SVD's identity V of a zero matrix.  Plain tensor arithmetic: torch.linalg.svd
+    and eigh check convergence on the host, which a CUDA graph cannot hold."""
+    A64 = A.to(torch.float64)
+    M = A64.transpose(-1, -2) @ A64
+    shift = 1e-12 * torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) + 1e-30
+    X = _adjugate4(M + shift[:, None, None]
+                   * torch.eye(4, dtype=M.dtype, device=M.device))
+    for _ in range(12):
+        X = X / torch.amax(torch.abs(X), dim=(-2, -1), keepdim=True)
+        X = X @ X
+    k = 3 - torch.argmax(torch.diagonal(X, dim1=-2, dim2=-1).flip(-1), dim=-1)
+    v = torch.gather(X, 2, k[:, None, None].expand(-1, 4, 1))[..., 0]
+    return (v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)).to(A.dtype)
+
+
 def _dlt_two_view(pose0, pose1, p0, p1):
     """4-row DLT (triangulatePoint :775-791), batched: p0/p1 (N, 2)."""
     A = torch.stack([
@@ -117,7 +160,7 @@ def _dlt_two_view(pose0, pose1, p0, p1):
         p1[:, 0:1] * pose1[2] - pose1[0],
         p1[:, 1:2] * pose1[2] - pose1[1],
     ], dim=1)                                      # (N, 4, 4)
-    v = torch.linalg.svd(A).Vh[:, -1]
+    v = _null_vector(A)
     return v[:, :3] / v[:, 3:4]
 
 
@@ -236,7 +279,7 @@ def triangulate_multiview(book: FeatureBook, state: WindowState, ex_idx: int):
     row1 = f[..., 1:2] * P_rows[..., 2, :] - f[..., 2:3] * P_rows[..., 1, :]
     m = book.obs[..., None].to(dtype)
     A = torch.cat([row0 * m, row1 * m], dim=1)            # (L, 22, 4)
-    v = torch.linalg.svd(A, full_matrices=False).Vh[:, -1]
+    v = _null_vector(A)
     depth = v[:, 2] / v[:, 3]
     ok = gate & (depth >= 0.1)
     inv_depth = torch.where(ok, 1.0 / torch.clamp(depth, min=1e-6),

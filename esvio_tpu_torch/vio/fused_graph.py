@@ -1,0 +1,177 @@
+"""Segment A of the steady estimator tick as CUDA graphs: the port's form of
+the one `jax.jit` dispatch of esvio_tpu's `_fused_tick`.
+
+One graph per static key (the keyword arguments of `_fused_segment_a`,
+among them the preintegration's bucketed step count, and the per-tick
+input shapes), captured at the key's first tick and replayed on every
+later one:
+
+  * the state (window, both books, prior) lives in static device buffers;
+    the graph writes the solved window and books back into them by `copy_`,
+    and the estimator hands segment B's results to `adopt`, which does the
+    same;
+  * the per-tick inputs go in from pinned host staging buffers by
+    `copy_(..., non_blocking=True)` before `replay()`;
+  * `post` comes out packed in one static byte buffer: the tick's one
+    device→host fetch (`fetch_post`);
+  * the kernels' launch counters advance in Python, so during a capture
+    they count launches that do not happen: those are taken back and added
+    again on every replay.
+
+A capture or replay that fails raises; nothing falls back to eager.
+`pack_post` and `fetch_post` serve the eager path on the CPU as well.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from esvio_tpu_torch import _kernels
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64,
+             torch.int32: np.int32, torch.int64: np.int64,
+             torch.bool: np.bool_, torch.uint8: np.uint8}
+
+
+def pack_post(post):
+    """A dict of tensors as one flat byte tensor, and its host layout
+    ((name, numpy dtype, shape, byte offset), ...)."""
+    parts, layout, off = [], [], 0
+    for name, t in post.items():
+        b = t.detach().reshape(-1).view(torch.uint8)
+        layout.append((name, _NP_DTYPE[t.dtype], tuple(t.shape), off))
+        parts.append(b)
+        off += b.numel()
+    return torch.cat(parts), tuple(layout)
+
+
+def fetch_post(packed, layout):
+    """One device→host copy of a packed dict, unpacked into numpy arrays
+    that own their memory."""
+    host = torch.empty(packed.shape, dtype=torch.uint8,
+                       pin_memory=packed.is_cuda)
+    host.copy_(packed)
+    buf = host.numpy()
+    return {name: np.frombuffer(buf, dt, int(np.prod(shape, dtype=np.int64)),
+                                off).reshape(shape).copy()
+            for name, dt, shape, off in layout}
+
+
+def _tensors(states):
+    """The tensors of a sequence of (nested) dataclasses, in field order."""
+    out = []
+    for obj in states:
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            out.extend(_tensors([v]) if dataclasses.is_dataclass(v) else [v])
+    return out
+
+
+def clone_state(obj):
+    """A deep copy of a (nested) dataclass of tensors."""
+    return dataclasses.replace(obj, **{
+        f.name: clone_state(v) if dataclasses.is_dataclass(v) else v.clone()
+        for f in dataclasses.fields(obj)
+        for v in [getattr(obj, f.name)]})
+
+
+def _copy_into(dst_states, src_states):
+    """copy_ every tensor of src_states into its counterpart of dst_states.
+    A source that is another static tensor is cloned first, so no copy
+    reads a buffer that an earlier copy of the same call overwrote."""
+    dsts, srcs = _tensors(dst_states), _tensors(src_states)
+    static = {id(t) for t in dsts}
+    srcs = [s.clone() if s is not d and id(s) in static else s
+            for d, s in zip(dsts, srcs)]
+    for d, s in zip(dsts, srcs):
+        if d is not s:
+            d.copy_(s)
+
+
+class _Capture:
+    """One captured segment A: its static inputs, graph, outputs and the
+    kernel launches it holds."""
+
+    def __init__(self, device, inputs, dtypes):
+        self.x = [torch.empty(tuple(np.shape(v)), dtype=d, device=device)
+                  for v, d in zip(inputs, dtypes)]
+        self.host = {}
+        self.graph = None
+
+    def stage(self, inputs):
+        for i, (dst, v) in enumerate(zip(self.x, inputs)):
+            if not torch.is_tensor(v):
+                h = self.host.get(i)
+                if h is None:
+                    h = self.host[i] = torch.empty(dst.shape, dtype=dst.dtype,
+                                                   pin_memory=True)
+                h.numpy()[...] = v
+                v = h
+            dst.copy_(v, non_blocking=True)
+
+    def capture(self, segment, state):
+        dev = self.x[0].device
+        # one eager run on a side stream first: lazy initialisation (library
+        # handles, workspaces, kernel attributes) must not fall in the capture
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            segment(state, self.x)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = {k: k.launches for k in _kernels.KERNELS}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            ws, bi, be, preints, post = segment(state, self.x)
+            self.packed, self.layout = pack_post(post)
+            # preints holds views of the static window (its linearization
+            # biases are ws.Ba/Bg[:W]): copied out before the write-back
+            self.preints = clone_state(preints)
+            _copy_into(state[:3], (ws, bi, be))
+        self.launches = {k: k.launches - before[k] for k in _kernels.KERNELS}
+        for k in _kernels.KERNELS:
+            k.launches = before[k]
+
+
+class TickGraphs:
+    """The static state of one estimator and its captured segment A graphs."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.state = None
+        self._caps = {}
+        self.n_captures = 0
+        self.n_replays = 0
+
+    def adopt(self, state):
+        """Copy `state` (ws, book_img, book_evt, prior) into the static
+        buffers, allocated at the first call; returns the static state."""
+        state = tuple(state)
+        if self.state is None:
+            self.state = tuple(clone_state(s) for s in state)
+        elif any(a is not b for a, b in zip(self.state, state)):
+            _copy_into(self.state, state)
+        return self.state
+
+    def run(self, key, segment, state, inputs, dtypes):
+        """Segment A by graph replay: `segment(state, x)` computes it from
+        the static state and the static inputs x, which `inputs` (numpy
+        arrays or tensors, in order) are staged into.  Returns (x,
+        (ws, book_img, book_evt), preints, packed, layout), all static."""
+        state = self.adopt(state)
+        key = (key, tuple(tuple(np.shape(v)) for v in inputs))
+        cap = self._caps.get(key)
+        if cap is None:
+            cap = _Capture(self.device, inputs, dtypes)
+            cap.stage(inputs)
+            cap.capture(segment, state)
+            self._caps[key] = cap
+            self.n_captures += 1
+        else:
+            cap.stage(inputs)
+        cap.graph.replay()
+        self.n_replays += 1
+        for k, n in cap.launches.items():
+            k.launches += n
+        return cap.x, state[:3], cap.preints, cap.packed, cap.layout

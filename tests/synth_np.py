@@ -191,10 +191,12 @@ GOLDEN = dict(H=120, W=160, focal=200.0, duration=1.6)
 BENCH = dict(H=240, W=320, focal=320.0, duration=2.4)
 
 
-def esio_pipeline(device, H, W, focal, duration, baseline=0.10, plane_z=4.0):
+def esio_pipeline(device, H, W, focal, duration, baseline=0.10, plane_z=4.0,
+                  fused=True):
     """(make_pipeline, seq, gt_t, gt_P): a factory of fresh port ESIO
     pipelines on `device` (loop closure off, the tracker and estimator
-    settings of the golden trace) and its synthetic sequence."""
+    settings of the golden trace; `fused` picks the estimator's steady
+    tick) and its synthetic sequence."""
     from esvio_tpu_torch.apps.pipeline import Pipeline
     from esvio_tpu_torch.core import camera
     from esvio_tpu_torch.frontend import tracker as trk
@@ -218,7 +220,8 @@ def esio_pipeline(device, H, W, focal, duration, baseline=0.10, plane_z=4.0):
                                     cand_capacity=512, max_cnt=60,
                                     min_dist=10, lk_iters=15)
     est_cfg = est_mod.EstimatorConfig(mode="esio", evt_capacity=256,
-                                      img_capacity=8, min_track_for_kf=15)
+                                      img_capacity=8, min_track_for_kf=15,
+                                      fused=fused)
 
     def make_pipeline():
         return Pipeline(sys_cfg, {"event0": cam, "event1": cam}, device,

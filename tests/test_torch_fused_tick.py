@@ -1,0 +1,197 @@
+"""The port's fused steady tick (esvio_tpu_torch.vio.estimator._fused_tick)
+against the JAX package's `_fused_tick`, against the port's own general
+path, and its one-fetch invariant, on the CPU in float32.
+
+One drive (the synthetic run of test_torch_vio.py, 15 frames) feeds the
+same packets and IMU samples to three estimators: the JAX package's on its
+default fused path, with its marginalization in float64 as the port takes
+it (torch_parity.jax_marginalization_f64) and every `_fused_tick` call
+recorded; the port's on its default fused path, its host reads counted on
+every steady tick; the port's general path (fused=False).
+
+Tolerances:
+  (a) one tick of each branch from the JAX call's own inputs: marg_old,
+      n_trk, n_drop_e, fail, num and kf_valid exact; the window's P within
+      1e-4 and V within 1e-3 (test_torch_vio's one tick from a JAX state);
+      the prior as J0ᵀJ0 and J0ᵀr0 within 5 % (test_torch_solver.py);
+  (b) port fused against port general, tick by tick: solver and marg flags
+      equal, P and V within 2e-3, |q·q'| > 1 - 1e-5 (the JAX package's own
+      gates between its two paths, tests/test_fused_tick.py:58-70);
+  (c) exactly one host read per steady tick, over at least four.
+"""
+import types
+
+import numpy as np
+import pytest
+import jax
+import torch
+
+from torch_parity import jax_marginalization_f64, rel_err, to_torch
+from test_estimator import BASELINE, make_world, packet_for_frame
+from synth import simulate_trajectory
+from esvio_tpu.vio import estimator as jest
+from esvio_tpu_torch.imu import preintegration as tpre
+from esvio_tpu_torch.solver import gauss_newton as tgn
+from esvio_tpu_torch.solver import window as twin
+from esvio_tpu_torch.vio import estimator as test_
+
+N_FRAMES = 15
+STATIC = ("has_img", "iters", "cauchy_c", "sc", "kf_ex_idx", "min_track")
+READS = ("item", "cpu", "tolist", "numpy", "__bool__", "__int__", "__float__")
+
+
+def _host(tree):
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+
+@pytest.fixture(scope="module")
+def drive():
+    with jax_marginalization_f64(), pytest.MonkeyPatch.context() as mp:
+        # a fresh jit of the JAX fused tick, traced inside the context, whose
+        # calls are recorded (inputs and outputs, on the host)
+        f = jest._fused_tick.__wrapped__
+        fresh = jax.jit(types.FunctionType(f.__code__, f.__globals__,
+                                           "_fused_tick", f.__defaults__,
+                                           f.__closure__),
+                        static_argnames=STATIC)
+        calls = []
+
+        def recording(*args, **kw):
+            out = fresh(*args, **kw)
+            calls.append((_host(args), kw, _host(out)))
+            return out
+
+        mp.setattr(jest, "_fused_tick", recording)
+        out = _drive()
+    out["calls"] = calls
+    return out
+
+
+def _drive():
+    rng = np.random.default_rng(3)
+    traj = simulate_trajectory(rng, n_frames=N_FRAMES, imu_per_frame=10,
+                               frame_dt=0.05)
+    lms = make_world(rng, traj)
+    ex_p = np.array([[0, 0, 0], [0, 0, 0], [BASELINE, 0, 0], [BASELINE, 0, 0]],
+                    float)
+    ex_q = np.tile(np.array([1.0, 0, 0, 0]), (4, 1))
+    kw = dict(mode="esio", evt_capacity=128, img_capacity=8, min_track_for_kf=15)
+    je = jest.Estimator(jest.EstimatorConfig(**kw), ex_p, ex_q)
+    tf = test_.Estimator(test_.EstimatorConfig(**kw), ex_p, ex_q, "cpu")
+    tg = test_.Estimator(test_.EstimatorConfig(fused=False, **kw), ex_p, ex_q,
+                         "cpu")
+    out = dict(fused=[], general=[], reads=[])
+    seen = set()
+    for f in range(N_FRAMES):
+        if f > 0:
+            for s in range(traj["imu_per_frame"]):
+                i = (f - 1) * traj["imu_per_frame"] + s + 1
+                for e in (je, tf, tg):
+                    e.process_imu(traj["dt"], traj["imu_acc"][i],
+                                  traj["imu_gyr"][i])
+        pkt, seen = packet_for_frame(traj, f, lms, seen, 0.3 / 460.0, rng)
+        je.process_packets(traj["t"][f], pkt)
+        out["general"].append(tg.process_packets(traj["t"][f], pkt))
+        steady = tf.solver_flag == "NON_LINEAR" and tf.frame_count == twin.WINDOW
+        count = [0]
+        with pytest.MonkeyPatch.context() as reads:
+            for name in READS if steady else ():
+                reads.setattr(torch.Tensor, name,
+                              _counted(getattr(torch.Tensor, name), count))
+            out["fused"].append(tf.process_packets(traj["t"][f], pkt))
+        if steady:
+            out["reads"].append(count[0])
+    return out
+
+
+def _counted(real, count):
+    def counted(self, *a, **k):
+        count[0] += 1
+        return real(self, *a, **k)
+    return counted
+
+
+def _port_tick(args, kw):
+    """The port's _fused_tick on one recorded JAX call's inputs."""
+    (ws, bi, be, prior, pe, pi, imu_dt, imu_acc, imu_gyr, a0s, g0s, mask,
+     imu_valid, g, frozen, imu_params, min_par) = args
+    t = lambda a: torch.from_numpy(np.array(a))
+    n = int(np.nonzero(mask.any(0))[0].max()) + 1
+    return test_._fused_tick(
+        to_torch(ws, twin.WindowState), to_torch(bi, twin.FeatureBook),
+        to_torch(be, twin.FeatureBook), to_torch(prior, tgn.Prior),
+        tuple(t(a) for a in pe), tuple(t(a) for a in pi),
+        *(t(a) for a in (imu_dt, imu_acc, imu_gyr, a0s, g0s, mask, imu_valid,
+                         g, frozen)),
+        to_torch(imu_params, tpre.ImuParams), t(min_par), **kw,
+        n_steps=test_._steps_bucket(n, mask.shape[1]))
+
+
+def _normal(J0, r0):
+    J0 = np.asarray(J0, np.float64)
+    return J0.T @ J0, J0.T @ np.asarray(r0, np.float64)
+
+
+@pytest.mark.parametrize("branch", ["MARGIN_OLD", "MARGIN_SECOND_NEW"])
+def test_one_fused_tick_matches_jax(drive, branch):
+    want_old = branch == "MARGIN_OLD"
+    calls = [c for c in drive["calls"] if bool(c[2][4]["marg_old"]) == want_old]
+    assert calls, f"the drive made no {branch} fused tick"
+    args, kw, (jws, jbi, jbe, jprior, jpost) = calls[0]
+    ws, bi, be, prior, post = _port_tick(args, kw)
+    for k in ("marg_old", "n_trk", "n_drop_e", "fail", "num", "kf_valid"):
+        assert np.array_equal(post[k], jpost[k]), k
+    np.testing.assert_allclose(post["P"], jpost["P"], atol=1e-4)
+    np.testing.assert_allclose(post["V"], jpost["V"], atol=1e-3)
+    # the slid window and the new prior
+    np.testing.assert_allclose(ws.P.numpy(), jws.P, atol=1e-4)
+    np.testing.assert_allclose(ws.V.numpy(), jws.V, atol=1e-3)
+    for f in ("ids", "active", "obs"):
+        assert np.array_equal(getattr(be, f).numpy(), getattr(jbe, f)), f
+    assert bool(prior.valid) == bool(jprior.valid)
+    (A, b), (jA, jb) = _normal(prior.J0, prior.r0), _normal(jprior.J0, jprior.r0)
+    assert rel_err(A, jA) < 5e-2 and rel_err(b, jb) < 5e-2
+
+
+def test_fused_matches_general_path(drive):
+    fused, general = drive["fused"], drive["general"]
+    assert [o.solver_flag for o in fused] == [o.solver_flag for o in general]
+    assert [o.marg_flag for o in fused] == [o.marg_flag for o in general]
+    n = 0
+    for of, og in zip(fused, general):
+        if of.solver_flag != "NON_LINEAR":
+            continue
+        n += 1
+        np.testing.assert_allclose(of.P, og.P, atol=2e-3)
+        np.testing.assert_allclose(of.V, og.V, atol=2e-3)
+        assert abs(float(np.dot(of.Q, og.Q))) > 1.0 - 1e-5, (of.Q, og.Q)
+        assert (of.keyframe is None) == (og.keyframe is None)
+    assert n >= 5
+
+
+def test_fused_tick_makes_exactly_one_host_read(drive):
+    reads = drive["reads"]
+    assert len(reads) >= 4, "never reached steady state"
+    assert reads == [1] * len(reads), reads
+
+
+def test_post_packs_into_one_fetch():
+    """pack_post/fetch_post: every dtype of the post dict through one byte
+    buffer, unpacked into arrays that own their memory."""
+    from esvio_tpu_torch.vio.fused_graph import fetch_post, pack_post
+    rng = np.random.default_rng(0)
+    post = dict(P=torch.tensor(rng.normal(size=(11, 3)).astype(np.float32)),
+                ids=torch.tensor(rng.integers(-1, 99, 128).astype(np.int32)),
+                obs=torch.tensor(rng.random((128, 11)) > 0.5)[:, 8],
+                n=torch.tensor(7), flag=torch.tensor(True),
+                x64=torch.tensor(rng.normal(size=4)))
+    got = fetch_post(*pack_post(post))
+    assert list(got) == list(post)
+    for k, t in post.items():
+        assert got[k].dtype == t.numpy().dtype and got[k].flags.owndata, k
+        assert np.array_equal(got[k], t.numpy()), k
+
+
+def test_steps_bucket():
+    assert [test_._steps_bucket(n, 512) for n in (0, 1, 13, 16, 17, 40, 600)] \
+        == [16, 16, 16, 16, 32, 64, 512]

@@ -94,3 +94,20 @@ def test_evaluate_matches(rng):
     rj = np.asarray(jpre.evaluate(j, jnp.asarray(g), *(jnp.asarray(a) for a in st)))
     rt = tpre.evaluate(t, torch.tensor(g), *(torch.tensor(a) for a in st)).numpy()
     assert rel_err(rt, rj) < 1e-5
+
+
+def test_preintegrate_batch_with_host_step_count(rng):
+    """n_steps from the host (the longest interval's count, or the fused
+    tick's bucketed count) gives the all-steps result exactly: steps past
+    the last real sample are no-ops."""
+    tp = tpre.make_imu_params()
+    ivs = [_interval(rng, n_real=n_real) for n_real in (20, 7, 0, 13)]
+    dts, acc, gyr, mask = (torch.tensor(np.stack(x)) for x in zip(*ivs))
+    ba = torch.tensor(np_f32(rng.normal(0, 0.05, (4, 3))))
+    bg = torch.tensor(np_f32(rng.normal(0, 0.01, (4, 3))))
+    args = (dts, acc, gyr, acc[:, 0], gyr[:, 0], ba, bg, tp, mask)
+    want = tpre.preintegrate_batch(*args)
+    for n in (20, 32, 80):
+        got = tpre.preintegrate_batch(*args, n_steps=n)
+        for f in FIELDS + ("sum_dt",):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (n, f)

@@ -5,19 +5,20 @@ tests/golden/esio_planar_rot.npz, on the CPU.
 Gates and tolerances:
   * tests/synth_np.py reproduces tests/synth.py's golden sequence exactly
     (x64 is on in this suite, the setting the golden was made with);
-  * tick by tick, the port's back end on the JAX tracker's packets against
-    the JAX pipeline's general path (its marginalization in float64, as
-    the port's): the same NON_LINEAR and IMU-rate stamps, and the
-    positions of NON_LINEAR and the STEADY_TICKS after it within
+  * tick by tick, the port's back end (general path) on the JAX tracker's
+    packets against the JAX pipeline's general path (its marginalization
+    in float64, as the port's): the same NON_LINEAR and IMU-rate stamps,
+    and the positions of NON_LINEAR and the STEADY_TICKS after it within
     BACKEND_TOL_M.  Later positions drift apart through the float32 LM
     solves (3.6e-3 m at the sixth stamp, 1.7e-2 m at the last), less than
     the JAX package's own fused and general paths do on the same packets
     (5.7e-2 m).  All 14 stay inside the golden test's own gates
     (tests/test_golden_trace.py:78-86): the stamps within 1e-6 s, max
     deviation < 0.05 m, ATE <= 1.5 x golden + 0.01 m;
-  * the port's full run with its own front end: the golden's stamps and
-    ATE gate, and max deviation < 0.05 m once the four degrees of freedom
-    VIO cannot observe (yaw and translation) are aligned onto the golden.
+  * the port's full run with its own front end, on its default fused
+    path: the golden's stamps and ATE gate, and max deviation < 0.05 m
+    once the four degrees of freedom VIO cannot observe (yaw and
+    translation) are aligned onto the golden.
     Unaligned, it misses the golden's 0.05 m (0.289 m): its front end
     flips single features on float32 ulps (test_torch_frontend.py), the
     stereo initialization then fixes another gauge (7.5 deg of yaw), and
@@ -94,11 +95,12 @@ def jax_golden():
 @pytest.fixture(scope="module")
 def port_on_jax_packets(jax_golden):
     """The port's pipeline over the golden run with its tracker's packets
-    replaced by the JAX tracker's: (result, gt_t, gt_P)."""
+    replaced by the JAX tracker's, on its general path as the JAX run:
+    (result, gt_t, gt_P)."""
     import esvio_tpu_torch.apps.pipeline as tpipe
     from esvio_tpu_torch.frontend import tracker as ttrk
     packets = iter([to_torch(p, ttrk.FeaturePacket) for p in jax_golden[1]])
-    make_pipeline, seq, gt_t, gt_P = esio_pipeline("cpu", **GOLDEN)
+    make_pipeline, seq, gt_t, gt_P = esio_pipeline("cpu", fused=False, **GOLDEN)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tpipe.trk, "track_event_stereo",
                    lambda cfg, cam_l, cam_r, state, ch_l, ch_r, t:
@@ -109,8 +111,8 @@ def port_on_jax_packets(jax_golden):
 
 @pytest.fixture(scope="module")
 def port_golden():
-    """The port's full golden run: (result, gt_t, gt_P, the tracker packet
-    of each tick)."""
+    """The port's full golden run on its default, fused path: (result, gt_t,
+    gt_P, the tracker packet of each tick)."""
     import esvio_tpu_torch.apps.pipeline as tpipe
     track = tpipe.trk.track_event_stereo
     packets = []

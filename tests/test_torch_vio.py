@@ -60,7 +60,8 @@ def _drive():
     ex_q = np.tile(np.array([1.0, 0, 0, 0]), (4, 1))
     kw = dict(mode="esio", evt_capacity=128, img_capacity=8, min_track_for_kf=15)
     je = jest.Estimator(jest.EstimatorConfig(fused=False, **kw), ex_p, ex_q)
-    te = test_.Estimator(test_.EstimatorConfig(**kw), ex_p, ex_q, "cpu")
+    te = test_.Estimator(test_.EstimatorConfig(fused=False, **kw), ex_p, ex_q,
+                         "cpu")
     out = dict(j=[], t=[], traj=traj)
     seen = set()
     k_imu = traj["imu_per_frame"]
@@ -228,3 +229,27 @@ def test_alignment_matches(rng):
     assert bool(jo[0]) == bool(to[0])
     for a, b in zip(jo[1:], to[1:]):
         assert rel_err(b.numpy(), a) < 1e-3
+
+
+def test_null_vector_matches_svd(rng):
+    """The triangulations' null vector (float64 power method on adj(AᵀA),
+    free of host syncs) against float64 SVD on multi-view DLT systems with
+    noise, and SVD's identity on a zero system."""
+    n, views = 200, 6
+    X = np.concatenate([rng.uniform(-2, 2, (n, 2)), rng.uniform(1, 7, (n, 1)),
+                        np.ones((n, 1))], 1)
+    rows = []
+    for _ in range(views):
+        R = rng.normal(0, 0.05, 3)
+        Rm = np.eye(3) + np.array([[0, -R[2], R[1]], [R[2], 0, -R[0]],
+                                   [-R[1], R[0], 0]])
+        P = np.concatenate([Rm, rng.uniform(-0.3, 0.3, (3, 1))], 1)
+        x = X @ P.T
+        u = x[:, :2] / x[:, 2:] + rng.normal(0, 1e-3, (n, 2))
+        rows += [u[:, 0:1] * P[2] - P[0], u[:, 1:2] * P[2] - P[1]]
+    A = np_f32(np.stack(rows, 1))
+    v = tfm._null_vector(torch.tensor(A)).numpy().astype(np.float64)
+    want = np.linalg.svd(A.astype(np.float64))[2][:, -1]
+    assert np.abs(np.abs(np.sum(v * want, -1)) - 1).max() < 1e-6
+    zero = tfm._null_vector(torch.zeros((2, 4, 4))).numpy()
+    assert np.array_equal(zero, np.tile([0.0, 0.0, 0.0, 1.0], (2, 1)))

@@ -132,7 +132,8 @@ def make_problem(L_img=8, L_evt=64):
 
 def estimator_to_torch(je, device="cpu"):
     """A port Estimator that starts from the JAX estimator `je`'s state
-    (general path): window, books, prior, IMU rings and host flags."""
+    and configuration (its `fused` choice included): window, books, prior,
+    IMU rings and host flags."""
     import copy
     from esvio_tpu_torch.solver import gauss_newton as tgn
     from esvio_tpu_torch.solver import window as twin
@@ -147,7 +148,7 @@ def estimator_to_torch(je, device="cpu"):
             min_track_for_kf=c.min_track_for_kf,
             estimate_extrinsic=c.estimate_extrinsic,
             estimate_td=c.estimate_td,
-            use_stereo_correction=c.use_stereo_correction),
+            use_stereo_correction=c.use_stereo_correction, fused=c.fused),
         np.asarray(je.ws.ex_p), np.asarray(je.ws.ex_q), device)
     te.ws = to_torch(je.ws, twin.WindowState, device)
     te.book_img = to_torch(je.book_img, twin.FeatureBook, device)
