@@ -18,9 +18,12 @@ times the event front end at DAVIS346 and DSEC size, drives the bench size
 once more on the general path (fused=False), and replays that run's
 estimator calls to hold the graph replay against the eager fused tick and
 to count, per steady tick of each path, host syncs (sync debug mode) and
-device operations (torch.profiler), with the card's idle share.  It checks
-every result.  One line per phase, then a JSON line with the kernels, then
-as the last line
+device operations (torch.profiler), with the card's idle share.  Then the
+ESVIO pipeline (stereo events + stereo frames + IMU, system_mode 1) at the
+golden and at the bench size, its frames rendered at twice the tracker's
+size and resized on the card, and the image tracker's tick at DAVIS346 and
+DSEC frame size.  It checks every result.  One line per phase, then a JSON
+line with the kernels, then as the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -39,6 +42,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_NPZ = os.path.join(ROOT, "tests", "golden", "esio_planar_rot.npz")
+GOLDEN_ESVIO_NPZ = os.path.join(ROOT, "tests", "golden", "esvio_planar_rot.npz")
 
 # Max position deviation from the golden trajectory once yaw and translation,
 # the four degrees of freedom VIO cannot observe, are aligned onto it: the
@@ -48,6 +52,15 @@ GOLDEN_NPZ = os.path.join(ROOT, "tests", "golden", "esio_planar_rot.npz")
 # it (PERF.md, "Golden gates").  The NON_LINEAR stamps and the ATE gate are
 # the golden test's own (tests/test_golden_trace.py:78-86).
 GOLDEN_MAX_DEV_M = 0.05
+# The ESVIO golden (phase 9) is held to what the JAX package itself meets on
+# it (tests/jax_golden_spread.py: its default path on the CPU, with its own
+# RANSAC key and with keys 1-6): the stamps and the ATE gate at every key;
+# after the yaw + translation alignment it lands 0.0253-0.0763 m from the
+# golden (0.0480 m with its own key, over 0.05 m at 4 of the 7 keys), so
+# the port's aligned deviation is held to that spread's largest.  Unaligned
+# it misses the golden's 0.05 m at 5 of the 7 keys (0.0654 m with its own).
+ESVIO_GOLDEN_MAX_DEV_M = 0.0763
+ESVIO_ATE_MAX_M = 0.3     # tests/test_pipeline.py:157-158
 
 
 def log(msg):
@@ -317,9 +330,9 @@ def _graph_use(pipe):
 
 def phase_golden(device):
     import torch
-    from synth_np import GOLDEN, esio_pipeline, golden_gates
+    from synth_np import GOLDEN, golden_gates, vio_pipeline
     from esvio_tpu_torch import _kernels
-    make_pipeline, seq, gt_t, gt_P = esio_pipeline(device, **GOLDEN)
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline(device, **GOLDEN)
     pipe = make_pipeline()
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -380,9 +393,9 @@ def _bench_run(pipe, seq, gt_t, gt_P, label):
 def phase_bench_pipeline(device):
     """The bench.py pipeline (240x320, focal 320, 2.4 s) on the default fused
     path: the main path whose kernel launches the JSON line reports."""
-    from synth_np import BENCH, esio_pipeline
+    from synth_np import BENCH, vio_pipeline
     from esvio_tpu_torch import _kernels
-    make_pipeline, seq, gt_t, gt_P = esio_pipeline(device, **BENCH)
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline(device, **BENCH)
     make_pipeline().run(seq)                     # cold run: first launches
     pipe = make_pipeline()
     _kernels.reset_launch_counts()
@@ -400,8 +413,8 @@ def phase_bench_pipeline(device):
 def phase_general_pipeline(device, ate_fused):
     """The same 240x320 run on the general path (fused=False), with every
     estimator call recorded for phase 8."""
-    from synth_np import BENCH, esio_pipeline
-    make_pipeline, seq, gt_t, gt_P = esio_pipeline(device, fused=False, **BENCH)
+    from synth_np import BENCH, vio_pipeline
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline(device, fused=False, **BENCH)
     pipe = make_pipeline()
     calls = _record_calls(pipe.estimator)
     _, ate = _bench_run(pipe, seq, gt_t, gt_P, "general, warm")
@@ -675,6 +688,176 @@ def phase_frontend(device):
     log("phase 6 real-size front end: ok")
 
 
+# ---------------------------------------------------------------- phase 9/10
+def _solved(book):
+    """Active lanes of a feature book with a valid depth."""
+    return int((book.active & book.depth_valid).sum())
+
+
+def _image_graphs(pipe):
+    """(captures, replays, replays of keys with has_img=True / False) of
+    the pipeline's fused-tick graphs."""
+    caps, reps = _graph_use(pipe)
+    by_key = pipe.estimator._graphs.replays_by_key()
+    img = sum(n for kw, n in by_key if kw["has_img"])
+    no_img = sum(n for kw, n in by_key if not kw["has_img"])
+    return caps, reps, img, no_img
+
+
+def phase_esvio_golden(device):
+    """The ESVIO golden (tests/test_golden_trace.py:31-64, frames at 15 Hz)
+    on the fused default."""
+    import torch
+    from synth_np import GOLDEN, golden_gates, vio_pipeline
+    from esvio_tpu_torch import _kernels
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline(device, mode="esvio",
+                                                    **GOLDEN)
+    pipe = make_pipeline()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = _kernels.CORNER_MASK.launches
+    k2 = _kernels.CHOL_SOLVE.launches
+    g = golden_gates(res, gt_t, gt_P, GOLDEN_ESVIO_NPZ)
+    ticks = res.metrics["ticks"]
+    caps, reps, img, no_img = _image_graphs(pipe)
+    est = pipe.estimator
+    si, se = _solved(est.book_img), _solved(est.book_evt)
+    log(f"  golden ESVIO 120x160 1.6 s, frames 15 Hz (fused): {ticks:.0f} ticks "
+        f"in {wall:.2f} s ({ticks / wall:.2f} ticks/s, cold), {g['n_stamps']} "
+        f"NON_LINEAR stamps (golden {g['n_golden']}), max dev "
+        f"{g['max_dev_4dof']:.4f} m after yaw {g['yaw_deg']:.2f} deg + shift "
+        f"{g['shift_m']:.4f} m (gate {ESVIO_GOLDEN_MAX_DEV_M} m, the JAX "
+        f"package's own spread; {g['max_dev']:.4f} m unaligned, not gated: the "
+        f"JAX package misses 0.05 m too), ATE {g['ate']:.4f} m (golden "
+        f"{g['ate_golden']:.4f} m); solved lanes image {si}, event {se}; "
+        f"launches K1 {k1}, K2 {k2}; fused-tick graphs: {caps} captured, "
+        f"{reps} replays ({img} with a frame, {no_img} without)")
+    if not g["stamps_ok"]:
+        raise AssertionError("ESVIO golden: NON_LINEAR stamps differ")
+    if not g["ate_ok"]:
+        raise AssertionError(f"ESVIO golden: ATE {g['ate']:.4f} m > 1.5 x golden "
+                             "+ 0.01")
+    if not g["max_dev_4dof"] <= ESVIO_GOLDEN_MAX_DEV_M:
+        raise AssertionError(f"ESVIO golden: max deviation {g['max_dev_4dof']:.4f}"
+                             " m after the yaw + translation alignment")
+    if si == 0 or se == 0:
+        raise AssertionError(f"ESVIO golden: solved lanes image {si}, event {se}")
+    if img == 0:
+        raise AssertionError("ESVIO golden: no graph keyed has_img=True replayed")
+    if k1 != ticks or k2 == 0:
+        raise AssertionError(f"ESVIO golden: K1 launched {k1} times for "
+                             f"{ticks:.0f} tracker ticks, K2 {k2} times")
+    log("phase 9 ESVIO golden pipeline: ok")
+
+
+def phase_esvio_bench(device):
+    """ESVIO at the bench geometry (bench.py:330-357: 240x320, focal 320;
+    1.6 s instead of 2.4 to keep the script's time) with frames rendered at
+    480x640 (focal 640, the same field of view), which the pipeline resizes
+    on the card to the image tracker's 240x320; one steady frame is
+    dropped, so that tick takes the no-frame graph.  A cold run, then the
+    warm run whose launches the JSON line reports."""
+    import numpy as np
+    import torch
+    from synth_np import BENCH, vio_pipeline
+    from esvio_tpu_torch import _kernels
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline(
+        device, mode="esvio", img_H=480, img_W=640, **dict(BENCH, duration=1.6))
+    drop = len(seq.images_left[0]) - 5
+    for side in ("images_left", "images_right"):
+        t_f, frames = getattr(seq, side)
+        setattr(seq, side, (np.delete(t_f, drop), np.delete(frames, drop, 0)))
+    make_pipeline().run(seq)                     # cold run: first launches
+    pipe = make_pipeline()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    ticks = res.metrics["ticks"]
+    n_nl = len(res.stamps)
+    P = np.asarray(res.P)
+    ate = res.ate(gt_t, gt_P) if n_nl else float("inf")
+    caps, reps, img, no_img = _image_graphs(pipe)
+    est = pipe.estimator
+    si, se = _solved(est.book_img), _solved(est.book_evt)
+    st = res.stage_times
+    rate = ticks / wall
+    log(f"  ESVIO 240x320 1.6 s, frames 480x640 at 15 Hz resized on the card "
+        f"(fused, warm): {ticks:.0f} ticks, {n_nl} NON_LINEAR, ATE {ate:.4f} m, "
+        f"{rate:.2f} ticks/s, realtime x{rate / 15.0:.3f} at 15 Hz; ms/tick "
+        f"frontend_event {st['frontend_event']['mean_ms']:.1f}, frontend_image "
+        f"{st['frontend_image']['mean_ms']:.1f} ({st['frontend_image']['n']} "
+        f"frames), estimator {st['estimator']['mean_ms']:.1f}; solved lanes "
+        f"image {si}, event {se}; launches {launches}; fused-tick graphs: "
+        f"{caps} captured, {reps} replays ({img} with a frame, {no_img} without)")
+    if n_nl == 0 or res.n_restarts or not np.isfinite(P).all():
+        raise AssertionError(f"ESVIO 240x320: {n_nl} NON_LINEAR ticks, "
+                             f"{res.n_restarts} restarts, finite {np.isfinite(P).all()}")
+    if not ate < ESVIO_ATE_MAX_M:
+        raise AssertionError(f"ESVIO 240x320: ATE {ate:.4f} m")
+    if si == 0 or se == 0:
+        raise AssertionError(f"ESVIO 240x320: solved lanes image {si}, event {se}")
+    if img == 0 or no_img == 0:
+        raise AssertionError(f"ESVIO 240x320: graph replays with a frame {img}, "
+                             f"without {no_img}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the ESVIO path never ran: {launches}")
+    log("phase 10 ESVIO 240x320 pipeline: ok")
+    return launches, ticks
+
+
+# ---------------------------------------------------------------- phase 11
+def _image_frontend_ms(device, H, W, iters=8):
+    """ms per image-tracker tick at (H, W) after two warm-up ticks, on the
+    inputs and tracker settings of bench.py:277-311 (smoothed noise, views
+    shifted (0, 0), (1, 2), (2, 4))."""
+    import numpy as np
+    import torch
+    from numpy.lib.stride_tricks import sliding_window_view
+    from esvio_tpu_torch.core import camera
+    from esvio_tpu_torch.frontend import tracker as trk
+    cfg = trk.TrackerConfig(width=W, height=H, capacity=256,
+                            cand_capacity=1024, max_cnt=150, min_dist=30)
+    cam = camera.make_pinhole(1100.0, 1100.0, W / 2, H / 2, width=W, height=H,
+                              device=device)
+    base = np.random.default_rng(3).uniform(0, 255, (H + 8, W + 8)) \
+        .astype(np.float32)
+    k = np.ones(25, np.float32) / 25
+    sm = sliding_window_view(base, (5, 5)).reshape(H + 4, W + 4, 25) @ k
+    frames = [torch.tensor(sm[dy:dy + H, dx:dx + W], device=device)
+              for (dy, dx) in ((0, 0), (1, 2), (2, 4))]
+    state = trk.init_image_state(cfg, device)
+    for k_ in range(2):
+        state, pkt = trk.track_image_stereo(cfg, cam, cam, state, frames[k_],
+                                            frames[k_ + 1], 1.0 + k_ * 0.1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k_ in range(iters):
+        state, pkt = trk.track_image_stereo(cfg, cam, cam, state,
+                                            frames[k_ % 2], frames[k_ % 2 + 1],
+                                            1.2 + k_ * 0.1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / iters * 1e3
+    n = int(pkt.valid.sum())
+    if n == 0 or not torch.isfinite(pkt.un[pkt.valid]).all():
+        raise AssertionError(f"image front end {H}x{W}: {n} features, or "
+                             "non-finite ones")
+    return ms, n
+
+
+def phase_image_frontend(device):
+    for (H, W), label in (((260, 346), "DAVIS346"), ((1080, 1440), "DSEC")):
+        ms, n = _image_frontend_ms(device, H, W)
+        log(f"  image front end {label} {H}x{W}: {ms:.2f} ms/tick ({n} tracked "
+            f"features)")
+    log("phase 11 real-size image front end: ok")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -700,12 +883,20 @@ def main():
     phase_frontend(device)
     calls = phase_general_pipeline(device, ate)
     phase_fused_tick(calls)
+    phase_esvio_golden(device)
+    launches_v, ticks_v = phase_esvio_bench(device)
+    phase_image_frontend(device)
 
+    # launches: the ESVIO bench run (this slice's main path); the ESIO
+    # bench run's beside them
     kernels = []
     for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2)):
         kernels.append(dict(name=k.name, route="cuda", source=k.source,
-                            replaces=k.replaces, launches=launches[k.name],
-                            launches_per_tick=launches[k.name] / ticks, **row))
+                            replaces=k.replaces, launches=launches_v[k.name],
+                            launches_per_tick=launches_v[k.name] / ticks_v,
+                            launches_esio=launches[k.name],
+                            launches_per_tick_esio=launches[k.name] / ticks,
+                            **row))
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
-"""ESIO pipeline: stereo events + IMU → trajectory (port of the ESIO path
-of esvio_tpu/apps/pipeline.py).
+"""ESIO / ESVIO pipeline: stereo events (+ stereo frames) + IMU →
+trajectory (port of esvio_tpu/apps/pipeline.py).
 
-The in-process replacement for the reference's ROS graph (event tracker →
-estimator) with the measurement-sync semantics of
+The in-process replacement for the reference's ROS graph (event tracker ‖
+image tracker → estimator) with the measurement-sync semantics of
 getMeasurements_event_image_imu (stereo_estimator_node.cpp:115-170) and
 the stream watchdog → restart (stereo_event_tracker_node.cpp:163-173,
 restart_callback :231-252).  Everything numeric runs on the pipeline's
-`device`; nothing is moved to the CPU when that is a CUDA device.
+`device` (the card unless the caller asks for the CPU); frames are
+converted and resized there too.
 
-Not ported yet: the ESVIO image front end, IMU-aided motion correction and
-loop closure — a configuration that asks for them raises.
+Not ported yet: IMU-aided motion correction and loop closure — a
+configuration that asks for them raises.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import esvio_tpu_torch
 from esvio_tpu_torch.frontend import tracker as trk
@@ -66,15 +68,35 @@ def _sync_pairs(it_l, it_r, tol):
             r = next(it_r, None)
 
 
-class Pipeline:
-    """Host orchestrator of the ESIO pipeline on one device."""
+_GRAY = (0.299, 0.587, 0.114)
 
-    def __init__(self, sys_cfg: SystemConfig, cams: dict, device,
+
+def prep_frame(frame, height: int, width: int, device):
+    """A frame as the image tracker takes it (getImageFromMsg,
+    stereo_image_tracker_node.cpp:257-319): float32 on `device`, RGB
+    converted to gray, resized bilinearly to (height, width) with
+    antialiasing as jax.image.resize(..., "linear") does."""
+    f = torch.as_tensor(np.asarray(frame), dtype=torch.float32, device=device)
+    if f.ndim == 3:
+        f = f @ torch.tensor(_GRAY, dtype=torch.float32, device=device)
+    if tuple(f.shape) != (height, width):
+        f = F.interpolate(f[None, None], size=(height, width), mode="bilinear",
+                          align_corners=False, antialias=True)[0, 0]
+    return f
+
+
+class Pipeline:
+    """Host orchestrator of the ESIO (system_mode 0) or ESVIO (1) pipeline
+    on one device."""
+
+    def __init__(self, sys_cfg: SystemConfig, cams: dict, device="cuda",
                  tracker_cfg: Optional[trk.TrackerConfig] = None,
                  est_cfg: Optional[est_mod.EstimatorConfig] = None,
-                 event_capacity: int = 1 << 16):
-        if sys_cfg.system_mode != 0:
-            raise NotImplementedError("only ESIO (system_mode 0) is ported")
+                 event_capacity: int = 1 << 16,
+                 img_tracker_cfg: Optional[trk.TrackerConfig] = None):
+        if sys_cfg.system_mode not in (0, 1):
+            raise NotImplementedError(
+                f"system_mode {sys_cfg.system_mode} is not a pipeline mode")
         if sys_cfg.loop_closure:
             raise NotImplementedError("loop closure is not ported")
         if sys_cfg.do_motion_correction:
@@ -92,8 +114,15 @@ class Pipeline:
             filter_threshold=sys_cfg.feature_filter_threshold,
             equalize=bool(sys_cfg.equalize),
             median_blur_ksize=int(sys_cfg.median_blur_kernel_size))
+        # the image path runs at its own geometry and budgets (image_width/
+        # height, max_cnt_img, min_dist_img — parameters.cpp:100,202)
+        self.img_tracker_cfg = img_tracker_cfg or trk.TrackerConfig(
+            width=sys_cfg.image_width, height=sys_cfg.image_height,
+            max_cnt=sys_cfg.max_cnt_img, min_dist=sys_cfg.min_dist_img,
+            f_threshold=sys_cfg.f_threshold, equalize=bool(sys_cfg.equalize))
         self.est_cfg = est_cfg or est_mod.EstimatorConfig(
-            mode="esio", min_parallax=sys_cfg.keyframe_parallax / 460.0,
+            mode="esio" if sys_cfg.system_mode == 0 else "esvio",
+            min_parallax=sys_cfg.keyframe_parallax / 460.0,
             g_norm=sys_cfg.g_norm, solver_iters=sys_cfg.max_num_iterations,
             estimate_extrinsic=sys_cfg.estimate_extrinsic,
             estimate_td=sys_cfg.estimate_td,
@@ -107,9 +136,13 @@ class Pipeline:
 
     def _reset(self):
         self.tracker_state = trk.init_state(self.tracker_cfg, self.device)
+        if self.sys_cfg.system_mode == 1:
+            self.img_tracker_state = trk.init_image_state(self.img_tracker_cfg,
+                                                          self.device)
         self.estimator = est_mod.Estimator(self.est_cfg, *self._ex, self.device,
                                            imu_params=self._imu_params)
         self._last_event_time = None
+        self._last_img_idx = -1
 
     def run(self, seq: ds.SequenceData,
             max_frames: Optional[int] = None) -> PipelineResult:
@@ -126,6 +159,7 @@ class Pipeline:
                                      self.device)
         cam_el = self.cams["event0"]
         cam_er = self.cams["event1"]
+        self._img_idx = 0
         prev_t = None
         n = 0
         pending = None
@@ -149,9 +183,10 @@ class Pipeline:
                 self.tracker_state, pkt_evt = trk.track_event_stereo(
                     self.tracker_cfg, cam_el, cam_er, self.tracker_state,
                     ch_l, ch_r, t)
+            pkt_img = self._image_frontend(seq, t, tim)
             if pending is not None:
                 self._estimator_stage(pending, seq, res, tim, met)
-            pending = (prev_t, t, pkt_evt)
+            pending = (prev_t, t, pkt_evt, pkt_img)
             prev_t = t
             n += 1
             if max_frames and n >= max_frames:
@@ -162,10 +197,34 @@ class Pipeline:
         res.stage_times = tim.report()
         return res
 
+    def _image_frontend(self, seq, t, tim):
+        """Pair the tick with the latest frame ≤ t and track it
+        (sync_process semantics): each frame is consumed once and stamped
+        with its own time.  None when the tick brings no new frame."""
+        imgs = seq.images_left
+        if self.sys_cfg.system_mode != 1 or imgs is None:
+            return None
+        stamps = imgs[0]
+        while self._img_idx + 1 < len(stamps) and stamps[self._img_idx + 1] <= t:
+            self._img_idx += 1
+        if not (stamps[self._img_idx] <= t
+                and self._img_idx != self._last_img_idx):
+            return None
+        self._last_img_idx = k = self._img_idx
+        cfg = self.img_tracker_cfg
+        with tim("frontend_image"):
+            frame_l = prep_frame(imgs[1][k], cfg.height, cfg.width, self.device)
+            frame_r = prep_frame(seq.images_right[1][k], cfg.height, cfg.width,
+                                 self.device)
+            self.img_tracker_state, pkt_img = trk.track_image_stereo(
+                cfg, self.cams["cam0"], self.cams["cam1"],
+                self.img_tracker_state, frame_l, frame_r, float(stamps[k]))
+        return pkt_img
+
     def _estimator_stage(self, stage, seq, res, tim, met):
         """Back end for one tick: IMU feed + IMU-rate prediction, window
         solve, output recording."""
-        prev_t, t, pkt_evt = stage
+        prev_t, t, pkt_evt, pkt_img = stage
         if prev_t is not None and seq.imu is not None:
             ts, accs, gyrs = ds.imu_between(seq.imu, prev_t, t)
             if len(ts):
@@ -179,7 +238,7 @@ class Pipeline:
                     res.Q_hf.extend(Q_hf)
                     res.V_hf.extend(V_hf)
         with tim("estimator"):
-            out = self.estimator.process_packets(t, pkt_evt)
+            out = self.estimator.process_packets(t, pkt_evt, pkt_img)
         self.estimator.update_latest()
         met.count("ticks")
         if out.n_tracked is not None:

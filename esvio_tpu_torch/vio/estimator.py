@@ -15,9 +15,10 @@ runs with no host synchronisation (one CUDA graph replay on the card,
 segment B, the marginalize-and-slide branch the decision picked.
 `fused=False` keeps the general multi-dispatch path, the oracle.
 
+Both estimator paths take image packets (ESVIO) beside the event ones.
 Not ported yet (ROADMAP queue 1): the monocular initialization fallback,
-online extrinsic calibration (`estimate_extrinsic == 2`), relocalization
-and image packets (ESVIO).
+online extrinsic calibration (`estimate_extrinsic == 2`) and
+relocalization.
 """
 from __future__ import annotations
 
@@ -80,13 +81,19 @@ class Output:
     n_tracked: Optional[int] = None
 
 
-def _input_dtypes(dt):
+# the packet fields the estimator takes, in insert_packet's order
+_PKT_FIELDS = ("ids", "valid", "un", "vel", "right_valid", "un_right",
+               "vel_right")
+
+
+def _input_dtypes(dt, has_img: bool):
     """dtypes of the fused tick's per-tick inputs, in the order of
-    `Estimator._process_packets_fused`: the packet's ids, valid, un, vel,
-    right_valid, un_r, vel_r, then imu_dt, imu_acc, imu_gyr, a0s, g0s,
-    imu_mask, imu_valid, frozen, min_parallax."""
+    `Estimator._process_packets_fused`: the event packet's _PKT_FIELDS,
+    the image packet's when has_img, then imu_dt, imu_acc, imu_gyr, a0s,
+    g0s, imu_mask, imu_valid, frozen, min_parallax."""
     b = torch.bool
-    return (torch.int32, b, dt, dt, b, dt, dt, dt, dt, dt, dt, dt, b, b, b, dt)
+    pkt = (torch.int32, b, dt, dt, b, dt, dt)
+    return pkt * (2 if has_img else 1) + (dt, dt, dt, dt, dt, b, b, b, dt)
 
 
 def _np(x):
@@ -133,9 +140,6 @@ def _fused_segment_a(ws, book_img, book_evt, prior, pkt_evt, pkt_img,
     the device → stereo + multiview triangulation → preintegration → LM
     window solve → gauge fix → failure soft reset → the `post` snapshot.
     Returns (ws, book_img, book_evt, preints, post)."""
-    if has_img:
-        raise NotImplementedError("image packets (ESVIO) are not ported "
-                                  "(ROADMAP 1.14)")
     W = WINDOW
     preints = pre.preintegrate_batch(
         imu_dt, imu_acc, imu_gyr, a0s, g0s, ws.Ba[:W], ws.Bg[:W],
@@ -155,10 +159,15 @@ def _fused_segment_a(ws, book_img, book_evt, prior, pkt_evt, pkt_img,
         V=torch.where(ok_prop, Vk, ws.V[W - 1]),
         Ba=ws.Ba[W - 1], Bg=ws.Bg[W - 1]))
 
-    # packet insertion + keyframe test (stereo_addFeatureCheckParallax)
-    book_evt, n_trk, n_drop_e = fm.insert_packet(
-        book_evt, *pkt_evt, torch.zeros_like(ws.td), W)
-    mean_par, num = fm.mean_parallax(book_evt, W)
+    # packet insertion + keyframe test (stereo_addFeatureCheckParallax):
+    # the image book decides when the tick has a frame
+    td0 = torch.zeros_like(ws.td)
+    book_evt, n_trk, n_drop_e = fm.insert_packet(book_evt, *pkt_evt, td0, W)
+    n_drop_i, par_book = torch.zeros_like(n_drop_e), book_evt
+    if has_img:
+        book_img, n_trk, n_drop_i = fm.insert_packet(book_img, *pkt_img, td0, W)
+        par_book = book_img
+    mean_par, num = fm.mean_parallax(par_book, W)
     is_old = (n_trk < min_track) | (num == 0) | (mean_par >= min_parallax)
 
     # triangulation with the stereo extrinsics taken on the device
@@ -193,7 +202,7 @@ def _fused_segment_a(ws, book_img, book_evt, prior, pkt_evt, pkt_img,
                 kf_obs=kf_book.obs[:, kf], kf_valid=kf_valid,
                 kf_ids=kf_book.ids, kf_pts=kf_pts, kf_un=kf_book.un[:, kf],
                 marg_old=is_old, n_trk=n_trk, n_drop_e=n_drop_e,
-                n_drop_i=torch.zeros_like(n_drop_e), fail=fail,
+                n_drop_i=n_drop_i, fail=fail,
                 mean_par=mean_par, num=num, prior_valid=prior.valid)
     return ws, book_img, book_evt, preints, post
 
@@ -256,7 +265,7 @@ def _steps_bucket(n: int, capacity: int) -> int:
 class Estimator:
     """Host-side estimator holding device tensors + numpy IMU buffers."""
 
-    def __init__(self, cfg: EstimatorConfig, ex_p, ex_q, device,
+    def __init__(self, cfg: EstimatorConfig, ex_p, ex_q, device="cuda",
                  imu_params: Optional[pre.ImuParams] = None):
         if cfg.estimate_extrinsic == 2:
             raise NotImplementedError(
@@ -500,29 +509,35 @@ class Estimator:
     def _segment_a(self, state, x, **kw):
         """`_fused_segment_a` on state (ws, book_img, book_evt, prior) and
         the per-tick input tensors x (order of `_input_dtypes`)."""
+        n = 14 if kw["has_img"] else 7
         pe = tuple(x[:7])
-        return _fused_segment_a(*state, pe, pe, *x[7:13], x[13], self.g, x[14],
-                                self.imu_params, x[15], **kw)
+        pi = tuple(x[7:n]) if kw["has_img"] else pe
+        r = x[n:]
+        return _fused_segment_a(*state, pe, pi, *r[:6], r[6], self.g, r[7],
+                                self.imu_params, r[8], **kw)
 
-    def _process_packets_fused(self, t: float, pkt_evt) -> Output:
+    def _process_packets_fused(self, t: float, pkt_evt, pkt_img) -> Output:
         """Steady NON_LINEAR tick through `_fused_tick`: segment A (a CUDA
         graph replay on the card, eager on the CPU), the one fetch, segment
         B.  The host work is numpy: IMU rings, stamps, output packing."""
         cfg = self.cfg
         self.timestamps[WINDOW] = t
         a0s, g0s, mask = self._window_imu()
-        kw = dict(has_img=False, iters=cfg.solver_iters, cauchy_c=cfg.cauchy_c,
+        has_img = pkt_img is not None
+        if has_img:
+            self._seen_img = True
+        kw = dict(has_img=has_img, iters=cfg.solver_iters, cauchy_c=cfg.cauchy_c,
                   sc=cfg.use_stereo_correction,
                   kf_ex_idx=1 if (cfg.mode == "esio" or not self._seen_img) else 0,
                   min_track=cfg.min_track_for_kf,
                   n_steps=_steps_bucket(int(self.imu_n[1:].max()),
                                         cfg.imu_capacity))
-        inputs = (pkt_evt.ids, pkt_evt.valid, pkt_evt.un, pkt_evt.vel,
-                  pkt_evt.right_valid, pkt_evt.un_right, pkt_evt.vel_right,
-                  self.imu_dt[1:], self.imu_acc[1:], self.imu_gyr[1:], a0s, g0s,
-                  mask, self._imu_valid(), self._frozen_mask(),
-                  np.asarray(cfg.min_parallax))
-        dtypes = _input_dtypes(cfg.dtype)
+        pkts = (pkt_evt, pkt_img) if has_img else (pkt_evt,)
+        inputs = tuple(getattr(p, f) for p in pkts for f in _PKT_FIELDS) + (
+            self.imu_dt[1:], self.imu_acc[1:], self.imu_gyr[1:], a0s, g0s,
+            mask, self._imu_valid(), self._frozen_mask(),
+            np.asarray(cfg.min_parallax))
+        dtypes = _input_dtypes(cfg.dtype, has_img)
         state = (self.ws, self.book_img, self.book_evt, self.prior)
         if self._graphs is None:
             x = [torch.as_tensor(v, device=self.device).to(d)
@@ -537,7 +552,7 @@ class Estimator:
         marg_flag = MARGIN_OLD if bool(post["marg_old"]) else MARGIN_SECOND_NEW
         state = _fused_segment_b(
             marg_flag == MARGIN_OLD, bool(post["prior_valid"]), ws, bi, be,
-            self.prior, preints, x[13], self.g, cfg.cauchy_c)
+            self.prior, preints, x[7 * len(pkts) + 6], self.g, cfg.cauchy_c)
         if self._graphs is not None:
             state = self._graphs.adopt(state)
         self.ws, self.book_img, self.book_evt, self.prior = state
@@ -556,16 +571,14 @@ class Estimator:
     def process_packets(self, t: float, pkt_evt, pkt_img=None) -> Output:
         """Main measurement step (Stereo_processVisual, estimator.cpp:204-308):
         the fused tick once the window is full and NON_LINEAR, else the
-        general multi-dispatch path."""
-        if pkt_img is not None:
-            raise NotImplementedError("image packets (ESVIO) are not ported "
-                                      "(ROADMAP 1.14)")
+        general multi-dispatch path.  pkt_img: the tick's image packet
+        (ESVIO), None when no frame came with it."""
         cfg = self.cfg
         # relocalization and online extrinsic calibration, which also keep
         # the JAX package on its general path, are not ported
         if (cfg.fused and self.solver_flag == "NON_LINEAR"
                 and self.frame_count == WINDOW):
-            return self._process_packets_fused(t, pkt_evt)
+            return self._process_packets_fused(t, pkt_evt, pkt_img)
         if cfg.estimate_extrinsic:
             self._update_stereo_extrinsics()
         fc = self.frame_count
@@ -574,18 +587,23 @@ class Estimator:
             self._propagate_new_frame(fc)
 
         self.book_evt, n_trk_e, n_drop_e = self._insert(self.book_evt, pkt_evt, fc)
+        fetch = dict(n_trk=n_trk_e, n_drop_e=n_drop_e)
         par_book = self.book_evt
-        fetch = [n_trk_e, n_drop_e]
+        if pkt_img is not None:
+            self._seen_img = True
+            self.book_img, fetch["n_trk"], fetch["n_drop_i"] = self._insert(
+                self.book_img, pkt_img, fc)
+            par_book = self.book_img
         if fc >= 2:
-            fetch += list(fm.mean_parallax(par_book, fc))
-        vals = [v.item() for v in fetch]          # one round of host fetches
-        self.lanes_dropped += int(vals[1])
-        n_tracked = int(vals[0])
+            fetch["mean_par"], fetch["num"] = fm.mean_parallax(par_book, fc)
+        vals = {k: v.item() for k, v in fetch.items()}  # one round of fetches
+        self.lanes_dropped += int(vals["n_drop_e"]) + int(vals.get("n_drop_i", 0))
+        n_tracked = int(vals["n_trk"])
 
         # keyframe test (stereo_addFeatureCheckParallax :416-425)
         if fc < 2 or n_tracked < cfg.min_track_for_kf:
             marg_flag = MARGIN_OLD
-        elif int(vals[3]) == 0 or float(vals[2]) >= cfg.min_parallax:
+        elif int(vals["num"]) == 0 or float(vals["mean_par"]) >= cfg.min_parallax:
             marg_flag = MARGIN_OLD
         else:
             marg_flag = MARGIN_SECOND_NEW
@@ -638,7 +656,10 @@ class Estimator:
         (initialStructureStereo, estimator.cpp:706-856 + :1170-1264)."""
         cfg = self.cfg
         dt = cfg.dtype
-        book, ex_idx, name = self.book_evt, 1, "evt"
+        # the image book once it holds features (ESVIO), else the event one
+        book, ex_idx, name = (self.book_img, 0, "img") \
+            if cfg.mode == "esvio" and bool(torch.any(self.book_img.active)) \
+            else (self.book_evt, 1, "evt")
         Rex_np = _np(lie.quat_to_rot(self.ws.ex_q[ex_idx]))
         tex_n = _np(self.ws.ex_p[ex_idx])
 

@@ -79,11 +79,13 @@ def clone_state(obj):
 
 def _copy_into(dst_states, src_states):
     """copy_ every tensor of src_states into its counterpart of dst_states.
-    A source that is another static tensor is cloned first, so no copy
-    reads a buffer that an earlier copy of the same call overwrote."""
+    A source that shares memory with any static tensor (the tensor itself
+    or a view of it) is cloned first, so no copy reads a buffer that an
+    earlier copy of the same call overwrote."""
     dsts, srcs = _tensors(dst_states), _tensors(src_states)
-    static = {id(t) for t in dsts}
-    srcs = [s.clone() if s is not d and id(s) in static else s
+    static = {t.untyped_storage().data_ptr() for t in dsts}
+    srcs = [s.clone() if s is not d
+            and s.untyped_storage().data_ptr() in static else s
             for d, s in zip(dsts, srcs)]
     for d, s in zip(dsts, srcs):
         if d is not s:
@@ -99,6 +101,7 @@ class _Capture:
                   for v, d in zip(inputs, dtypes)]
         self.host = {}
         self.graph = None
+        self.replays = 0
 
     def stage(self, inputs):
         for i, (dst, v) in enumerate(zip(self.x, inputs)):
@@ -154,6 +157,10 @@ class TickGraphs:
             _copy_into(self.state, state)
         return self.state
 
+    def replays_by_key(self):
+        """[(static keyword arguments as a dict, replays)] per capture."""
+        return [(dict(k[0]), cap.replays) for k, cap in self._caps.items()]
+
     def run(self, key, segment, state, inputs, dtypes):
         """Segment A by graph replay: `segment(state, x)` computes it from
         the static state and the static inputs x, which `inputs` (numpy
@@ -171,6 +178,7 @@ class TickGraphs:
         else:
             cap.stage(inputs)
         cap.graph.replay()
+        cap.replays += 1
         self.n_replays += 1
         for k, n in cap.launches.items():
             k.launches += n

@@ -1,8 +1,9 @@
-"""Numpy-only copy of the part of tests/synth.py that the ESIO golden
-sequence needs (`planar_vio_sequence_rot` with the blob texture), returning
-the PyTorch port's `SequenceData`.  It imports neither jax nor esvio_tpu,
-so it also runs where JAX is not installed; tests/test_torch_pipeline.py
-checks it against tests/synth.py.
+"""Numpy-only copy of the part of tests/synth.py that the ESIO and ESVIO
+golden sequences need (`planar_vio_sequence_rot` with the blob texture and
+optional stereo frames), returning the PyTorch port's `SequenceData`.  It
+imports neither jax nor esvio_tpu, so it also runs where JAX is not
+installed; tests/test_torch_pipeline.py and tests/test_torch_esvio.py check
+it against tests/synth.py.
 """
 import numpy as np
 
@@ -101,11 +102,14 @@ def render_plane(tex, margin, H, W, focal, cx, cy, R_wc, t_wc, plane_z,
 
 def planar_vio_sequence_rot(rng, H=120, W=160, focal=200.0, plane_z=4.0,
                             baseline=0.10, duration=2.0, imu_hz=200,
-                            event_hz=400, g_norm=9.80766, rot_amp_deg=4.0):
+                            event_hz=400, g_norm=9.80766, rot_amp_deg=4.0,
+                            frame_hz=0, img_H=None, img_W=None, img_focal=None):
     """Stereo events + IMU from a camera over a blob-textured plane with a
     pitch/roll wobble (tests/synth.planar_vio_sequence_rot, blob texture,
-    no frames, no IMU bias or noise).  Returns (SequenceData, gt_t, gt_P)
-    with the port's SequenceData."""
+    no IMU bias or noise), and with frame_hz > 0 stereo frames of
+    (img_H, img_W) at focal img_focal (default: the event size and field of
+    view).  Frames draw nothing from rng.  Returns (SequenceData, gt_t,
+    gt_P) with the port's SequenceData."""
     from esvio_tpu_torch.io import datasets as ds
 
     tex, margin = blob_texture(rng, H * 2, W * 2, n_blobs=int(H * W / 25),
@@ -177,10 +181,33 @@ def planar_vio_sequence_rot(rng, H=120, W=160, focal=200.0, plane_z=4.0,
 
     tl, xl, yl, pl = gen_events(np.zeros(3))
     tr, xr, yr, pr = gen_events(np.array([baseline, 0.0, 0.0]))
+
+    images_l = images_r = None
+    if frame_hz:
+        fH = img_H or H
+        fW = img_W or W
+        ff = img_focal or focal * (fW / W)
+        f_t = np.arange(t0 + 0.5 / frame_hz, t0 + duration, 1.0 / frame_hz)
+
+        def render_frames(cam_offset):
+            frames = np.zeros((len(f_t), fH, fW), np.float32)
+            for k, t in enumerate(f_t):
+                tt = t - t0
+                R = rot(tt)[0]
+                p = pos(np.atleast_1d(tt))[0] + R @ cam_offset
+                frames[k] = render_plane(tex, margin, fH, fW, ff, fW / 2, fH / 2,
+                                         R, p, plane_z, tex_scale, tex_cx,
+                                         tex_cy)
+            return frames
+
+        images_l = (f_t, render_frames(np.zeros(3)))
+        images_r = (f_t, render_frames(np.array([baseline, 0.0, 0.0])))
+
     seq = ds.SequenceData(
         events_left=ds.EventStream(tl, xl, yl, pl),
         events_right=ds.EventStream(tr, xr, yr, pr),
         imu=ds.ImuStream(imu_t, acc, gyr),
+        images_left=images_l, images_right=images_r,
         ground_truth=(imu_t, pos(imu_t - t0)))
     return seq, imu_t, pos(imu_t - t0)
 
@@ -189,27 +216,33 @@ def planar_vio_sequence_rot(rng, H=120, W=160, focal=200.0, plane_z=4.0,
 # pipeline configuration of bench.py, in the port's types.
 GOLDEN = dict(H=120, W=160, focal=200.0, duration=1.6)
 BENCH = dict(H=240, W=320, focal=320.0, duration=2.4)
+FRAME_HZ = 15          # the ESVIO golden's frames (tests/test_golden_trace.py:33)
 
 
-def esio_pipeline(device, H, W, focal, duration, baseline=0.10, plane_z=4.0,
-                  fused=True):
-    """(make_pipeline, seq, gt_t, gt_P): a factory of fresh port ESIO
-    pipelines on `device` (loop closure off, the tracker and estimator
-    settings of the golden trace; `fused` picks the estimator's steady
-    tick) and its synthetic sequence."""
+def vio_pipeline(device, H, W, focal, duration, mode="esio", baseline=0.10,
+                 plane_z=4.0, fused=True, img_H=None, img_W=None):
+    """(make_pipeline, seq, gt_t, gt_P): a factory of fresh port pipelines
+    on `device` with the settings of the golden trace
+    (tests/test_golden_trace.py:31-64, loop closure off), and its synthetic
+    sequence.  mode "esio" (system_mode 0) or "esvio" (1: stereo frames at
+    FRAME_HZ rendered at (img_H, img_W) with the events' field of view,
+    default the event size, which the pipeline resizes to the image
+    tracker's (H, W)); `fused` picks the estimator's steady tick."""
     from esvio_tpu_torch.apps.pipeline import Pipeline
     from esvio_tpu_torch.core import camera
     from esvio_tpu_torch.frontend import tracker as trk
     from esvio_tpu_torch.io.config import SystemConfig
     from esvio_tpu_torch.vio import estimator as est_mod
 
+    esvio = mode == "esvio"
     seq, gt_t, gt_P = planar_vio_sequence_rot(
         np.random.default_rng(0), H=H, W=W, focal=focal, plane_z=plane_z,
-        baseline=baseline, duration=duration)
+        baseline=baseline, duration=duration,
+        frame_hz=FRAME_HZ if esvio else 0, img_H=img_H, img_W=img_W)
     cam = camera.make_pinhole(focal, focal, W / 2, H / 2, width=W, height=H)
     R = np.eye(3)
     sys_cfg = SystemConfig(
-        system_mode=0, event_width=W, event_height=H, image_width=W,
+        system_mode=int(esvio), event_width=W, event_height=H, image_width=W,
         image_height=H, R_body_cam0=R, t_body_cam0=np.zeros(3),
         R_body_cam1=R, t_body_cam1=np.array([baseline, 0, 0]),
         R_body_event0=R, t_body_event0=np.zeros(3),
@@ -219,14 +252,17 @@ def esio_pipeline(device, H, W, focal, duration, baseline=0.10, plane_z=4.0,
     tracker_cfg = trk.TrackerConfig(width=W, height=H, capacity=128,
                                     cand_capacity=512, max_cnt=60,
                                     min_dist=10, lk_iters=15)
-    est_cfg = est_mod.EstimatorConfig(mode="esio", evt_capacity=256,
-                                      img_capacity=8, min_track_for_kf=15,
-                                      fused=fused)
+    est_cfg = est_mod.EstimatorConfig(mode=mode, evt_capacity=256,
+                                      img_capacity=256 if esvio else 8,
+                                      min_track_for_kf=15, fused=fused)
+    cams = {"event0": cam, "event1": cam}
+    if esvio:
+        cams.update(cam0=cam, cam1=cam)
 
     def make_pipeline():
-        return Pipeline(sys_cfg, {"event0": cam, "event1": cam}, device,
-                        tracker_cfg=tracker_cfg, est_cfg=est_cfg,
-                        event_capacity=1 << 15)
+        return Pipeline(sys_cfg, cams, device, tracker_cfg=tracker_cfg,
+                        est_cfg=est_cfg, event_capacity=1 << 15,
+                        img_tracker_cfg=tracker_cfg if esvio else None)
 
     return make_pipeline, seq, gt_t, gt_P
 

@@ -1,0 +1,164 @@
+"""The ESVIO slice as a whole: the port's pipeline in system_mode 1 (stereo
+events + stereo frames + IMU) against the JAX pipeline on the ESVIO golden
+sequence (tests/test_golden_trace.py:31-64, mode="esvio"), on the CPU.
+
+One JAX run on its general path (fused=False), its marginalization in
+float64 as the port takes it (torch_parity.jax_marginalization_f64), records
+both trackers' packets and every tick's flags over the first RUN_TICKS
+ticks of the sequence (NON_LINEAR from the 11th).  The port's back end then
+runs on those packets (its trackers replaced by the recording):
+  * on its default fused path: the same NON_LINEAR stamps and the same marg
+    flag on every tick as the JAX run, positions within 0.05 m unaligned
+    (the golden's gate, tests/test_golden_trace.py:83);
+  * on its general path: the same solver and marg flags on every tick, and
+    positions within 2e-3 m (tests/test_fused_tick.py:66-67) on every
+    NON_LINEAR tick (measured: within 3.6e-4 m).  Later in the sequence
+    positions drift apart through the float32 LM solves, as in
+    test_torch_pipeline.py, so the run stops at RUN_TICKS.
+The JAX package's own ESVIO golden run (its default path) meets the stamps
+and the ATE gate, and 0.05 m after the yaw + translation alignment only
+with its own RANSAC key (0.0480 m; 0.0253-0.0763 m over keys 1-6), not the
+unaligned 0.05 m (0.0654 m; tests/jax_golden_spread.py, ROADMAP 3-R2).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from torch_parity import jax_marginalization_f64, to_torch
+from synth_np import GOLDEN, vio_pipeline
+
+MAX_DEV_M = 0.05          # tests/test_golden_trace.py:83
+BACKEND_TOL_M = 2e-3      # tests/test_fused_tick.py:66-67
+RUN_TICKS = 16
+
+
+def _recording(mp, module, name, store, convert=lambda x: x):
+    real = getattr(module, name)
+
+    def rec(*a, **k):
+        state, pkt = real(*a, **k)
+        store.append(convert(pkt))
+        return state, pkt
+    mp.setattr(module, name, rec)
+
+
+def _flags(mp, est_cls, store):
+    real = est_cls.process_packets
+
+    def rec(self, *a, **k):
+        out = real(self, *a, **k)
+        store.append((out.solver_flag, out.marg_flag))
+        return out
+    mp.setattr(est_cls, "process_packets", rec)
+
+
+@pytest.fixture(scope="module")
+def jax_esvio():
+    """The JAX ESVIO golden run on its general path: (result, event packets,
+    image packets, (solver_flag, marg_flag) of each tick, its sequence)."""
+    import jax
+    import synth
+    import esvio_tpu.apps.pipeline as jpipe
+    from test_golden_trace import run_golden_pipeline
+    evt, img, flags, seqs = [], [], [], []
+
+    class Pipeline(jpipe.Pipeline):
+        def __init__(self, *a, est_cfg=None, **k):
+            super().__init__(*a, est_cfg=dataclasses.replace(
+                est_cfg, fused=False), **k)
+
+        def run(self, seq, **k):
+            return super().run(seq, max_frames=RUN_TICKS, **k)
+
+    with pytest.MonkeyPatch.context() as mp, jax_marginalization_f64():
+        mp.setattr(jpipe, "Pipeline", Pipeline)
+        _recording(mp, jpipe.trk, "track_event_stereo", evt, jax.device_get)
+        _recording(mp, jpipe.trk, "track_image_stereo", img, jax.device_get)
+        _flags(mp, jpipe.est_mod.Estimator, flags)
+        real_synth = synth.planar_vio_sequence_rot
+        mp.setattr(synth, "planar_vio_sequence_rot",
+                   lambda *a, **k: seqs.append(real_synth(*a, **k)) or seqs[-1])
+        res, _, _ = run_golden_pipeline("esvio")
+    return res, evt, img, flags, seqs[0][0]
+
+
+def _port_on_jax_packets(jax_esvio, fused):
+    import esvio_tpu_torch.apps.pipeline as tpipe
+    from esvio_tpu_torch.frontend import tracker as ttrk
+    evt, img = jax_esvio[1:3]
+    evt = iter([to_torch(p, ttrk.FeaturePacket) for p in evt])
+    img = iter([to_torch(p, ttrk.FeaturePacket) for p in img])
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline("cpu", mode="esvio", fused=fused,
+                                                    **GOLDEN)
+    flags, fused_ticks = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tpipe.trk, "track_event_stereo",
+                   lambda cfg, cam_l, cam_r, state, ch_l, ch_r, t:
+                   (state, next(evt)))
+        mp.setattr(tpipe.trk, "track_image_stereo",
+                   lambda cfg, cam_l, cam_r, state, f_l, f_r, t:
+                   (state, next(img)))
+        _flags(mp, tpipe.est_mod.Estimator, flags)
+        real = tpipe.est_mod.Estimator._process_packets_fused
+        mp.setattr(tpipe.est_mod.Estimator, "_process_packets_fused",
+                   lambda self, t, *p: fused_ticks.append(p[1] is not None)
+                   or real(self, t, *p))
+        pipe = make_pipeline()
+        res = pipe.run(seq, max_frames=RUN_TICKS)
+    assert next(evt, None) is None and next(img, None) is None
+    return res, flags, pipe, fused_ticks, seq
+
+
+@pytest.fixture(scope="module")
+def port_fused(jax_esvio):
+    return _port_on_jax_packets(jax_esvio, fused=True)
+
+
+@pytest.fixture(scope="module")
+def port_general(jax_esvio):
+    return _port_on_jax_packets(jax_esvio, fused=False)
+
+
+def test_synth_np_reproduces_the_esvio_golden_sequence(jax_esvio, port_fused):
+    """tests/synth_np.py renders the ESVIO golden's frames (and events) as
+    tests/synth.py does, bit for bit."""
+    js, ts = jax_esvio[4], port_fused[4]
+    for side in ("images_left", "images_right"):
+        (jt, jf), (tt, tf) = getattr(js, side), getattr(ts, side)
+        assert np.array_equal(jt, tt) and len(jt) == 24
+        assert jf.dtype == tf.dtype and np.array_equal(jf, tf), side
+    for side in ("events_left", "events_right"):
+        for f in ("t", "x", "y", "p"):
+            assert np.array_equal(getattr(getattr(js, side), f),
+                                  getattr(getattr(ts, side), f)), (side, f)
+
+
+def test_port_fused_backend_on_jax_packets(jax_esvio, port_fused):
+    jres, _, img, jflags, _ = jax_esvio
+    res, flags, pipe, fused_ticks, _ = port_fused
+    assert len(img) >= RUN_TICKS - 1
+    assert res.metrics["ticks"] == len(jflags) == RUN_TICKS
+    assert len(res.stamps) == len(jres.stamps) == RUN_TICKS - 10
+    # every steady tick took the fused path, with its frame
+    assert fused_ticks == [True] * (RUN_TICKS - 11)
+    np.testing.assert_allclose(res.stamps, jres.stamps, rtol=0, atol=1e-9)
+    assert [m for _, m in flags] == [m for _, m in jflags]
+    dev = np.linalg.norm(np.asarray(res.P) - np.asarray(jres.P), axis=1)
+    print("fused: per-tick |P_port - P_jax| (m):", np.array2string(dev, precision=6))
+    assert dev.max() < MAX_DEV_M, dev
+    est = pipe.estimator
+    assert est._seen_img and bool(est.book_img.depth_valid.any())
+    assert res.stage_times["frontend_image"]["n"] == len(img)
+
+
+def test_port_general_backend_tick_by_tick_against_jax(jax_esvio, port_general):
+    jres, _, _, jflags, _ = jax_esvio
+    res, flags, _, fused_ticks, _ = port_general
+    assert flags == jflags and not fused_ticks
+    np.testing.assert_allclose(res.stamps, jres.stamps, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(res.stamps_hf, jres.stamps_hf, rtol=0, atol=1e-9)
+    dev = np.linalg.norm(np.asarray(res.P) - np.asarray(jres.P), axis=1)
+    print("general: per-tick |P_port - P_jax| (m):",
+          np.array2string(dev, precision=6))
+    assert dev.max() < BACKEND_TOL_M, dev

@@ -7,7 +7,10 @@ same packets and IMU samples to three estimators: the JAX package's on its
 default fused path, with its marginalization in float64 as the port takes
 it (torch_parity.jax_marginalization_f64) and every `_fused_tick` call
 recorded; the port's on its default fused path, its host reads counted on
-every steady tick; the port's general path (fused=False).
+every steady tick; the port's general path (fused=False).  A fourth, the
+port's ESVIO estimator (mode "esvio"), also gets an image packet of the
+same world on every frame but one steady frame, and initializes from its
+image book; its host reads are counted on every steady tick too.
 
 Tolerances:
   (a) one tick of each branch from the JAX call's own inputs: marg_old,
@@ -17,8 +20,15 @@ Tolerances:
   (b) port fused against port general, tick by tick: solver and marg flags
       equal, P and V within 2e-3, |q·q'| > 1 - 1e-5 (the JAX package's own
       gates between its two paths, tests/test_fused_tick.py:58-70);
-  (c) exactly one host read per steady tick, over at least four.
+  (c) exactly one host read per steady tick, over at least four, on ESIO
+      ticks and on ESVIO ticks with and without a frame;
+  (d) one tick with an image packet (has_img=True) from a recorded JAX call
+      whose image book and packet mirror its event ones (ids offset by
+      1 << 24), through the JAX and the port's `_fused_tick`: every integer
+      and flag of post exact, P and V within 2e-3
+      (tests/test_fused_tick.py:66-67).
 """
+import dataclasses
 import types
 
 import numpy as np
@@ -36,6 +46,8 @@ from esvio_tpu_torch.solver import window as twin
 from esvio_tpu_torch.vio import estimator as test_
 
 N_FRAMES = 15
+IMG_ID0 = 1 << 24
+NO_FRAME = 13        # the steady frame of the ESVIO estimator without a frame
 STATIC = ("has_img", "iters", "cauchy_c", "sc", "kf_ex_idx", "min_track")
 READS = ("item", "cpu", "tolist", "numpy", "__bool__", "__int__", "__float__")
 
@@ -49,11 +61,7 @@ def drive():
     with jax_marginalization_f64(), pytest.MonkeyPatch.context() as mp:
         # a fresh jit of the JAX fused tick, traced inside the context, whose
         # calls are recorded (inputs and outputs, on the host)
-        f = jest._fused_tick.__wrapped__
-        fresh = jax.jit(types.FunctionType(f.__code__, f.__globals__,
-                                           "_fused_tick", f.__defaults__,
-                                           f.__closure__),
-                        static_argnames=STATIC)
+        fresh = _fresh_jax_fused_tick()
         calls = []
 
         def recording(*args, **kw):
@@ -65,6 +73,21 @@ def drive():
         out = _drive()
     out["calls"] = calls
     return out
+
+
+def _fresh_jax_fused_tick():
+    """A new jit of the JAX `_fused_tick` (traced where it is first called,
+    so inside jax_marginalization_f64 it takes that marginalization)."""
+    f = jest._fused_tick.__wrapped__
+    return jax.jit(types.FunctionType(f.__code__, f.__globals__, "_fused_tick",
+                                      f.__defaults__, f.__closure__),
+                   static_argnames=STATIC)
+
+
+def _image_packet(pkt):
+    """An image packet of the same features as `pkt`, ids offset."""
+    return types.SimpleNamespace(**{
+        **vars(pkt), "ids": np.where(pkt.valid, pkt.ids + IMG_ID0, -1)})
 
 
 def _drive():
@@ -80,27 +103,43 @@ def _drive():
     tf = test_.Estimator(test_.EstimatorConfig(**kw), ex_p, ex_q, "cpu")
     tg = test_.Estimator(test_.EstimatorConfig(fused=False, **kw), ex_p, ex_q,
                          "cpu")
-    out = dict(fused=[], general=[], reads=[])
-    seen = set()
+    tv = test_.Estimator(test_.EstimatorConfig(**{
+        **kw, "mode": "esvio", "img_capacity": 128}), ex_p, ex_q, "cpu")
+    out = dict(fused=[], general=[], reads=[], esvio=[], esvio_reads=[])
+    seen, seen_img = set(), set()
+    rng_img = np.random.default_rng(5)
     for f in range(N_FRAMES):
         if f > 0:
             for s in range(traj["imu_per_frame"]):
                 i = (f - 1) * traj["imu_per_frame"] + s + 1
-                for e in (je, tf, tg):
+                for e in (je, tf, tg, tv):
                     e.process_imu(traj["dt"], traj["imu_acc"][i],
                                   traj["imu_gyr"][i])
         pkt, seen = packet_for_frame(traj, f, lms, seen, 0.3 / 460.0, rng)
+        pkt_img, seen_img = packet_for_frame(traj, f, lms, seen_img,
+                                             0.3 / 460.0, rng_img)
         je.process_packets(traj["t"][f], pkt)
         out["general"].append(tg.process_packets(traj["t"][f], pkt))
-        steady = tf.solver_flag == "NON_LINEAR" and tf.frame_count == twin.WINDOW
-        count = [0]
-        with pytest.MonkeyPatch.context() as reads:
-            for name in READS if steady else ():
-                reads.setattr(torch.Tensor, name,
-                              _counted(getattr(torch.Tensor, name), count))
-            out["fused"].append(tf.process_packets(traj["t"][f], pkt))
-        if steady:
-            out["reads"].append(count[0])
+        out["fused"].append(_counted_tick(tf, out["reads"], traj["t"][f], pkt))
+        out["esvio"].append(_counted_tick(
+            tv, out["esvio_reads"], traj["t"][f], pkt,
+            None if f == NO_FRAME else _image_packet(pkt_img)))
+    out["esvio_book_img"] = tv.book_img
+    return out
+
+
+def _counted_tick(est, reads, t, *pkts):
+    """est.process_packets(t, *pkts), its host reads appended to `reads`
+    when the tick is a steady one."""
+    steady = est.solver_flag == "NON_LINEAR" and est.frame_count == twin.WINDOW
+    count = [0]
+    with pytest.MonkeyPatch.context() as mp:
+        for name in READS if steady else ():
+            mp.setattr(torch.Tensor, name,
+                       _counted(getattr(torch.Tensor, name), count))
+        out = est.process_packets(t, *pkts)
+    if steady:
+        reads.append((count[0], pkts[-1] is not None if len(pkts) > 1 else None))
     return out
 
 
@@ -170,9 +209,51 @@ def test_fused_matches_general_path(drive):
 
 
 def test_fused_tick_makes_exactly_one_host_read(drive):
-    reads = drive["reads"]
+    reads = [n for n, _ in drive["reads"]]
     assert len(reads) >= 4, "never reached steady state"
     assert reads == [1] * len(reads), reads
+
+
+def test_esvio_fused_tick_makes_exactly_one_host_read(drive):
+    """ESVIO steady ticks, with a frame and without one (NO_FRAME)."""
+    reads = drive["esvio_reads"]
+    assert len(reads) >= 4, "the ESVIO estimator never reached steady state"
+    assert [n for n, _ in reads] == [1] * len(reads), reads
+    assert {has for _, has in reads} == {True, False}, reads
+    assert all(o.solver_flag == "NON_LINEAR" for o in drive["esvio"][-4:])
+    assert bool(drive["esvio_book_img"].active.any())
+
+
+@pytest.mark.parametrize("branch", ["MARGIN_OLD", "MARGIN_SECOND_NEW"])
+def test_one_fused_tick_with_image_packet_matches_jax(drive, branch):
+    """A recorded ESIO call turned into an ESVIO one: the image book is the
+    event book and the image packet the event packet, ids offset; the JAX
+    `_fused_tick` (has_img=True, kf_ex_idx=0, marginalization in float64)
+    against the port's on the same inputs."""
+    want_old = branch == "MARGIN_OLD"
+    calls = [c for c in drive["calls"] if bool(c[2][4]["marg_old"]) == want_old]
+    assert calls, f"the drive made no {branch} fused tick"
+    args, kw, _ = calls[0]
+    args = list(args)
+    be, pe = args[2], args[4]
+    args[1] = dataclasses.replace(be, ids=np.where(be.ids >= 0, be.ids + IMG_ID0,
+                                                   -1).astype(np.int32))
+    args[5] = (np.where(pe[1], pe[0] + IMG_ID0, -1).astype(np.int32),) + pe[1:]
+    kw = dict(kw, has_img=True, kf_ex_idx=0)
+    with jax_marginalization_f64():
+        jws, jbi, jbe, jprior, jpost = _host(_fresh_jax_fused_tick()(*args, **kw))
+    ws, bi, be, prior, post = _port_tick(args, kw)
+    assert bool(jpost["marg_old"]) == want_old
+    for k in ("marg_old", "n_trk", "n_drop_e", "n_drop_i", "fail", "num",
+              "kf_valid", "kf_obs", "kf_ids"):
+        assert np.array_equal(post[k], jpost[k]), k
+    assert (post["kf_ids"] >= IMG_ID0).sum() > 0
+    np.testing.assert_allclose(post["P"], jpost["P"], atol=2e-3)
+    np.testing.assert_allclose(post["V"], jpost["V"], atol=2e-3)
+    for book, jbook in ((bi, jbi), (be, jbe)):
+        for f in ("ids", "active", "obs"):
+            assert np.array_equal(getattr(book, f).numpy(), getattr(jbook, f)), f
+    assert bool(prior.valid) == bool(jprior.valid)
 
 
 def test_post_packs_into_one_fetch():

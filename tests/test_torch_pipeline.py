@@ -38,7 +38,7 @@ import numpy as np
 import pytest
 
 from torch_parity import jax_marginalization_f64, to_torch
-from synth_np import GOLDEN, esio_pipeline, golden_gates
+from synth_np import GOLDEN, golden_gates, vio_pipeline
 
 GOLDEN_NPZ = os.path.join(os.path.dirname(__file__), "golden",
                           "esio_planar_rot.npz")
@@ -100,7 +100,7 @@ def port_on_jax_packets(jax_golden):
     import esvio_tpu_torch.apps.pipeline as tpipe
     from esvio_tpu_torch.frontend import tracker as ttrk
     packets = iter([to_torch(p, ttrk.FeaturePacket) for p in jax_golden[1]])
-    make_pipeline, seq, gt_t, gt_P = esio_pipeline("cpu", fused=False, **GOLDEN)
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline("cpu", fused=False, **GOLDEN)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tpipe.trk, "track_event_stereo",
                    lambda cfg, cam_l, cam_r, state, ch_l, ch_r, t:
@@ -122,7 +122,7 @@ def port_golden():
         packets.append(pkt)
         return state, pkt
 
-    make_pipeline, seq, gt_t, gt_P = esio_pipeline("cpu", **GOLDEN)
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline("cpu", **GOLDEN)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tpipe.trk, "track_event_stereo", recording)
         res = make_pipeline().run(seq)

@@ -5,9 +5,9 @@ torch thread cap for the suite's parallel workers.
 State crosses between the two implementations as numpy arrays: a JAX
 registered-dataclass pytree and its port dataclass have the same field
 names, so `to_torch` / `to_jax` convert field by field (recursing into
-nested states).  Converted: SAEState, EventChunk, TrackerState (with its
-PRNG key), FeaturePacket, WindowState, FeatureBook, Prior, Preintegrated,
-ImuParams, and the pinhole CameraModel.
+nested states).  Converted: SAEState, EventChunk, TrackerState and
+ImageTrackerState (with their PRNG keys), FeaturePacket, WindowState,
+FeatureBook, Prior, Preintegrated, ImuParams, and the pinhole CameraModel.
 """
 import contextlib
 import dataclasses
@@ -132,8 +132,9 @@ def make_problem(L_img=8, L_evt=64):
 
 def estimator_to_torch(je, device="cpu"):
     """A port Estimator that starts from the JAX estimator `je`'s state
-    and configuration (its `fused` choice included): window, books, prior,
-    IMU rings and host flags."""
+    and configuration (its `fused` choice included): window, both books
+    (the image book with its live lanes), prior, IMU rings and host flags
+    (whether an image packet was seen among them)."""
     import copy
     from esvio_tpu_torch.solver import gauss_newton as tgn
     from esvio_tpu_torch.solver import window as twin
@@ -156,7 +157,7 @@ def estimator_to_torch(je, device="cpu"):
     te.prior = to_torch(je.prior, tgn.Prior, device)
     for name in ("frame_count", "solver_flag", "timestamps", "imu_dt",
                  "imu_acc", "imu_gyr", "imu_n", "acc0", "gyr0", "first_imu",
-                 "last_marg", "failures", "_prior_valid", "n_solves",
+                 "last_marg", "failures", "_prior_valid", "_seen_img", "n_solves",
                  "lanes_dropped", "_post", "_latest", "_imu_replay"):
         setattr(te, name, copy.deepcopy(getattr(je, name)))
     te._update_stereo_extrinsics()
