@@ -22,8 +22,14 @@ device operations (torch.profiler), with the card's idle share.  Then the
 ESVIO pipeline (stereo events + stereo frames + IMU, system_mode 1) at the
 golden and at the bench size, its frames rendered at twice the tracker's
 size and resized on the card, and the image tracker's tick at DAVIS346 and
-DSEC frame size.  It checks every result.  One line per phase, then a JSON
-line with the kernels, then as the last line
+DSEC frame size.  Then loop closure: the e2e loop sequence
+(tests/test_e2e_loops.py) with loop closure, fast relocalization and IMU
+motion correction on (every closed loop fed back through the estimator's
+in-window relocalization solve, which takes the general path for that
+tick), bench.py's 240x320 pipeline with loop closure against the same
+run without it, and the 4-DoF pose graph's CG solve at 6144 keyframes
+with motion correction at DSEC size.  It checks every result.  One line
+per phase, then a JSON line with the kernels, then as the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -387,7 +393,7 @@ def _bench_run(pipe, seq, gt_t, gt_P, label):
         f"ATE {ate:.4f} m, {rate:.2f} ticks/s, realtime x{rate / 15.0:.3f} "
         f"at 15 Hz; estimator {res.stage_times['estimator']['mean_ms']:.1f} "
         f"ms/tick; stage ms/tick {json.dumps(res.stage_times)}")
-    return ticks, ate
+    return dict(ticks=ticks, ate=ate, rate=rate, n_nl=n_nl)
 
 
 def phase_bench_pipeline(device):
@@ -399,7 +405,7 @@ def phase_bench_pipeline(device):
     make_pipeline().run(seq)                     # cold run: first launches
     pipe = make_pipeline()
     _kernels.reset_launch_counts()
-    ticks, ate = _bench_run(pipe, seq, gt_t, gt_P, "fused, warm")
+    run = _bench_run(pipe, seq, gt_t, gt_P, "fused, warm")
     launches = {k.name: k.launches for k in _kernels.KERNELS}
     caps, reps = _graph_use(pipe)
     log(f"  launches {launches}; fused-tick graphs: {caps} captured, "
@@ -407,17 +413,20 @@ def phase_bench_pipeline(device):
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the main path never ran: {launches}")
     log("phase 5 240x320 pipeline: ok")
-    return launches, ticks, ate
+    run["sequence"] = (seq, gt_t, gt_P)
+    return launches, run
 
 
-def phase_general_pipeline(device, ate_fused):
-    """The same 240x320 run on the general path (fused=False), with every
-    estimator call recorded for phase 8."""
+def phase_general_pipeline(device, run5):
+    """The same 240x320 run (phase 5's sequence) on the general path
+    (fused=False), with every estimator call recorded for phase 8."""
     from synth_np import BENCH, vio_pipeline
-    make_pipeline, seq, gt_t, gt_P = vio_pipeline(device, fused=False, **BENCH)
+    ate_fused = run5["ate"]
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline(
+        device, fused=False, sequence=run5["sequence"], **BENCH)
     pipe = make_pipeline()
     calls = _record_calls(pipe.estimator)
-    _, ate = _bench_run(pipe, seq, gt_t, gt_P, "general, warm")
+    ate = _bench_run(pipe, seq, gt_t, gt_P, "general, warm")["ate"]
     if abs(ate - ate_fused) > 0.01:
         raise AssertionError(f"ATE general {ate:.4f} m, fused {ate_fused:.4f} m")
     log("phase 7 240x320 pipeline, general path: ok")
@@ -858,6 +867,334 @@ def phase_image_frontend(device):
     log("phase 11 real-size image front end: ok")
 
 
+# ---------------------------------------------------------------- phase 12/13
+def _instrument_loops(pipe):
+    """Count and time (synchronised) the loop closer's keyframe begins,
+    commits and 4-DoF solves of a pipeline; returns the dict it fills."""
+    import torch
+    lc = pipe.loop_closer
+    st = {k: [0, 0.0] for k in ("begin", "begun", "commit", "optimize")}
+
+    def timed(name, real):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            st[name][0] += 1
+            st[name][1] += time.perf_counter() - t0
+            if name == "begin" and out is not None:
+                st["begun"][0] += 1
+            return out
+        return run
+
+    lc.begin_keyframe = timed("begin", lc.begin_keyframe)
+    lc.commit_keyframe = timed("commit", lc.commit_keyframe)
+    lc._optimize = timed("optimize", lc._optimize)
+    return st
+
+
+def _ms_per(st, name):
+    n, s = st[name]
+    return s / n * 1e3 if n else float("nan")
+
+
+def _record_relo_route(pipe):
+    """Per estimator tick: (took the relo solve, was a graph replay, ms of
+    process_packets, synchronised)."""
+    import torch
+    est = pipe.estimator
+    real = est.process_packets
+    route = []
+
+    def run(*args, **kw):
+        relo0, rep0 = est.n_relo_solves, est._graphs.n_replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        route.append((est.n_relo_solves > relo0, est._graphs.n_replays > rep0,
+                      (time.perf_counter() - t0) * 1e3))
+        return out
+
+    est.process_packets = run
+    return route
+
+
+def phase_loops(device):
+    """tests/test_e2e_loops.py's configuration on the card (synth_np.
+    loop_pipeline: ESIO 120x160, 3.6 s, smooth texture, IMU biases) with
+    loop closure, fast relocalization and motion correction: this slice's
+    main path.  Gates of that test, and at least one relocalization tick
+    (the JAX package takes 5 on this configuration on the CPU, with motion
+    correction; tests/jax_golden_spread.py loops 1), each followed by a
+    graph replay once the window is steady again."""
+    import torch
+    from synth_np import loop_gates, loop_pipeline
+    from esvio_tpu_torch import _kernels
+    make_pipeline, seq, gt_t, gt_P = loop_pipeline(device, motion_correction=True)
+    pipe = make_pipeline()
+    st = _instrument_loops(pipe)
+    route = _record_relo_route(pipe)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    g = loop_gates(res, gt_t, gt_P)
+    ticks = res.metrics["ticks"]
+    est = pipe.estimator
+    relo_ticks = [k for k, r in enumerate(route) if r[0]]
+    # the first steady tick after a relocalization tick replays its graph
+    after = [route[k + 1][1] for k in relo_ticks
+             if k + 1 < len(route) and not route[k + 1][0]]
+    mean = lambda v: sum(v) / len(v) if v else float("nan")
+    relo_ms = mean([r[2] for r in route if r[0]])
+    replay_ms = mean([r[2] for r in route if r[1]])
+    sm = res.stage_times
+    log(f"  loops ESIO 120x160 3.6 s, loop closure + fast reloc + motion "
+        f"correction (fused): {ticks:.0f} ticks in {wall:.2f} s "
+        f"({ticks / wall:.2f} ticks/s, cold); ms/tick frontend_event "
+        f"{sm['frontend_event']['mean_ms']:.1f}, estimator "
+        f"{sm['estimator']['mean_ms']:.1f}; loop_closure "
+        f"{sm['loop_closure']['mean_ms']:.1f} ms per call "
+        f"({sm['loop_closure']['n']} calls); keyframes begun {st['begun'][0]}, "
+        f"committed {st['commit'][0]}, 4-DoF solves {st['optimize'][0]}; "
+        f"{g['loops']} loops; relocalization ticks {len(relo_ticks)} "
+        f"(general path) at {relo_ticks}, the next steady tick a graph "
+        f"replay {sum(after)} of {len(after)}; process_packets {relo_ms:.1f} "
+        f"ms per relocalization tick, {replay_ms:.1f} ms per graph-replay "
+        f"tick; graphs {est._graphs.n_captures} "
+        f"captured, {est._graphs.n_replays} replays; launches {launches}")
+    log(f"  gates (tests/test_e2e_loops.py:69-88): restarts {g['restarts']}, "
+        f"{g['n_stamps']} NON_LINEAR stamps (>= 30), ATE {g['ate']:.4f} m "
+        f"(< 0.3), loop ATE {g['ate_loop']:.4f} m (<= {g['ate_loop_gate']:.4f})")
+    if not g["ok"]:
+        raise AssertionError(f"loops: gates of tests/test_e2e_loops.py missed: {g}")
+    if not relo_ticks or not all(after):
+        raise AssertionError(f"loops: relocalization ticks {relo_ticks}, graph "
+                             f"replays after them {after}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the loop path never ran: {launches}")
+    log("phase 12 loop closure + relocalization + motion correction: ok")
+    return launches, ticks
+
+
+def phase_loops_bench(device, ref):
+    """bench.py's pipeline_run exactly (bench.py:330-357: 240x320, focal 320,
+    2.4 s, loop_closure=1, no fast relocalization, the fused default),
+    against phase 5's loop-off run of the same geometry in this call:
+    without fast relocalization the loops do not feed back into P, so the
+    stamps are phase 5's and the ATE within 0.01 m of it (phase 7's
+    tolerance between the two estimator paths)."""
+    import numpy as np
+    import torch
+    from synth_np import BENCH, vio_pipeline
+    from esvio_tpu_torch import _kernels
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline(
+        device, loop_closure=1, sequence=ref["sequence"], **BENCH)
+    pipe = make_pipeline()
+    st = _instrument_loops(pipe)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    ticks = res.metrics["ticks"]
+    n_nl = len(res.stamps)
+    ate = res.ate(gt_t, gt_P) if n_nl else float("inf")
+    rate = ticks / wall
+    log(f"  ESIO 240x320 2.4 s with loop closure (bench.py pipeline_run; "
+        f"fused): {ticks:.0f} ticks, {n_nl} NON_LINEAR, ATE {ate:.4f} m, "
+        f"{rate:.2f} ticks/s against {ref['rate']:.2f} without loop closure "
+        f"(phase 5, this call), realtime x{rate / 15.0:.3f}; ms/tick "
+        f"frontend_event {res.stage_times['frontend_event']['mean_ms']:.1f}, "
+        f"estimator {res.stage_times['estimator']['mean_ms']:.1f}; "
+        f"loop_closure ms per keyframe begun {_ms_per(st, 'begin'):.2f} "
+        f"({st['begun'][0]} of {st['begin'][0]}), per commit "
+        f"{_ms_per(st, 'commit'):.2f} ({st['commit'][0]}, solves included), "
+        f"per 4-DoF solve {_ms_per(st, 'optimize'):.2f} ({st['optimize'][0]}); "
+        f"{res.n_loops} loops; launches {launches}")
+    P = np.asarray(res.P)
+    if n_nl != ref["n_nl"] or res.n_restarts or not np.isfinite(P).all():
+        raise AssertionError(f"240x320 with loops: {n_nl} NON_LINEAR stamps "
+                             f"(phase 5: {ref['n_nl']}), {res.n_restarts} restarts")
+    if not abs(ate - ref["ate"]) <= 0.01:
+        raise AssertionError(f"240x320 with loops: ATE {ate:.4f} m, phase 5 "
+                             f"{ref['ate']:.4f} m")
+    if st["begun"][0] == 0 or st["commit"][0] == 0:
+        raise AssertionError("240x320 with loops: no keyframe reached the "
+                             "loop closer")
+    log("phase 13 240x320 pipeline with loop closure: ok")
+    return launches, ticks
+
+
+# ---------------------------------------------------------------- phase 14
+def _drifting_loop_problem(rng, K, n_loops, drift_per_step=0.002):
+    """tests/test_pose_graph_scale.py's problem in numpy: a square walked
+    twice with drifting VIO, loop edges measuring the true relative pose."""
+    import numpy as np
+    from esvio_tpu_torch.core import lie_np
+    side = max(4, K // 8)
+    t_gt = np.zeros((K, 3))
+    yaw_gt = np.zeros(K)
+    p = np.zeros(3)
+    yaw = 0.0
+    for k in range(K):
+        t_gt[k] = p
+        yaw_gt[k] = yaw
+        p = p + 0.05 * np.array([np.cos(np.deg2rad(yaw)),
+                                 np.sin(np.deg2rad(yaw)), 0])
+        if (k + 1) % side == 0:
+            yaw += 90.0
+    drift = np.cumsum(rng.normal(0, drift_per_step, (K, 3))
+                      + [[drift_per_step, 0, 0]], 0)
+    t_vio = t_gt + drift
+    yaw_vio = yaw_gt + np.cumsum(rng.normal(0, 0.01, K) + 0.002)
+    period = 4 * side
+    li, lj, lt, ly = [], [], [], []
+    for j in rng.choice(np.arange(period, K), min(n_loops, K - period),
+                        replace=False):
+        i = j - period
+        Ri = lie_np.ypr_to_rot([yaw_gt[i], 0.0, 0.0])
+        lt.append(Ri.T @ (t_gt[j] - t_gt[i]))
+        ly.append(yaw_gt[j] - yaw_gt[i])
+        li.append(i)
+        lj.append(j)
+    return yaw_vio, t_vio, np.array(li), np.array(lj), np.array(lt), np.array(ly)
+
+
+def _graph_args(device, yaw, t, valid, first, li, lj, lt, ly, lv):
+    import numpy as np
+    import torch
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    i = lambda a: torch.tensor(np.asarray(a, np.int64), device=device)
+    K = len(yaw)
+    return (f(yaw), f(t), f(np.zeros(K)), f(np.zeros(K)),
+            torch.tensor(valid, device=device), i(first), i(li), i(lj), f(lt),
+            f(ly), torch.tensor(lv, device=device))
+
+
+def phase_pose_graph_and_motion(device):
+    """optimize_4dof_cg at bench.py's bench_pose_graph shape
+    (bench.py:391-420: 8192 padded nodes, 6144 live, 128 loop edges,
+    iters=5, cg_iters=100): ms per solve (median of 3 after a warm-up)
+    and host syncs per solve; CG against the dense solve on
+    tests/test_pose_graph_scale.py:69-86's 256-node problem (yaw within
+    0.05 deg, t within 0.01 m); motion_correct_chunk at 131,072 events
+    (DSEC, 480x640) on the card against the same call on the CPU (at
+    most 0.1 % of the warped pixels may differ, floor() of a float32
+    quotient)."""
+    import statistics
+    import warnings
+    import numpy as np
+    import torch
+    from esvio_tpu_torch.events import motion
+    from esvio_tpu_torch.events import sae
+    from esvio_tpu_torch.loop import pose_graph
+    K = 1 << 13
+    n = K - K // 4
+    rng = np.random.default_rng(2)
+    yaw = np.zeros(K)
+    t = np.zeros((K, 3))
+    yaw[:n] = np.cumsum(rng.normal(0, 0.05, n))
+    t[:n] = np.cumsum(rng.normal(0, 0.01, (n, 3)), 0)
+    E = 128
+    li = rng.integers(0, n // 2, E)
+    lj = li + n // 2
+    args = _graph_args(device, yaw, t, np.arange(K) < n, int(li.min()), li, lj,
+                       rng.normal(0, 0.1, (E, 3)), rng.normal(0, 0.5, E),
+                       np.ones(E, bool))
+    solve = lambda: pose_graph.optimize_4dof_cg(*args, iters=5, cg_iters=100)
+    out = solve()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = solve()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    moved = float((out[1] - args[1]).abs().max())
+    log(f"  pose graph CG, {n} live of {K} nodes, {E} loop edges, 5 GN x 100 "
+        f"CG iterations: {ms:.2f} ms per solve (median of {times}), "
+        f"{syncs} host syncs per solve, finite {bool(torch.isfinite(out[1]).all())}, "
+        f"poses moved up to {moved:.3f} m; under the reference's 2 s optimize "
+        f"cadence: {ms < 2000.0}")
+    if not torch.isfinite(out[1]).all() or not moved > 0:
+        raise AssertionError("pose graph CG: non-finite or unmoved poses")
+
+    K2 = 256
+    yaw_v, t_v, li, lj, lt, ly = _drifting_loop_problem(
+        np.random.default_rng(0), K2, n_loops=12)
+    pad = lambda a, shape, dt: np.concatenate(
+        [np.asarray(a, dt), np.zeros((32 - len(a),) + shape, dt)])
+    lv = np.arange(32) < len(li)
+    args = _graph_args(device, yaw_v, t_v, np.ones(K2, bool), int(li.min()),
+                       pad(li, (), np.int64), pad(lj, (), np.int64),
+                       pad(lt, (3,), float), pad(ly, (), float), lv)
+    yd, td = pose_graph.optimize_4dof(*args, iters=5)
+    yc, tc = pose_graph.optimize_4dof_cg(*args, iters=5, cg_iters=400)
+    dyaw = float((((yc - yd) + 180.0) % 360.0 - 180.0).abs().max())
+    dt_ = float((tc - td).abs().max())
+    log(f"  pose graph CG against dense, 256 nodes, 12 loops, cg_iters 400: "
+        f"yaw {dyaw:.2e} deg (< 0.05), t {dt_:.2e} m (< 0.01)")
+    if not (dyaw < 0.05 and dt_ < 0.01):
+        raise AssertionError(f"pose graph: CG and dense differ by {dyaw} deg, "
+                             f"{dt_} m")
+
+    H, W, N = 480, 640, 131072
+    rng = np.random.default_rng(1)
+    ts = np.sort(rng.uniform(1.0, 1.0 + 1 / 10, N))
+    xs, ys = rng.integers(0, W, N), rng.integers(0, H, N)
+    ps = rng.integers(0, 2, N)
+    imu = dict(omega=np.float32([0.3, -0.5, 0.8]),
+               v_cur=np.float32([0.4, -0.2, 0.1]),
+               v_prev=np.float32([0.35, -0.25, 0.12]),
+               accel=np.float32([0.5, 9.6, 1.2]))
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        ch = sae.chunk_from_arrays(ts, xs, ys, ps, N, device=dev)
+        call = lambda ch=ch, dev=dev: motion.motion_correct_chunk(
+            ch, 570.0, 570.0, W / 2, H / 2,
+            *(torch.from_numpy(imu[k]).to(dev) for k in imu), 1.0,
+            width=W, height=H)
+        outs[dev.type] = call()
+        if dev.type == "cuda":
+            warp_ms = _timed(call, reps=20)
+    got, want = outs["cuda"], outs["cpu"]
+    diff = int(((got.x.cpu() != want.x) | (got.y.cpu() != want.y)).sum())
+    warped = int(((want.x != torch.from_numpy(xs.astype(np.int32)))
+                  | (want.y != torch.from_numpy(ys.astype(np.int32)))).sum())
+    log(f"  motion correction DSEC 480x640, {N} events: {warped} warped, "
+        f"{diff} differ between the card and the CPU "
+        f"({diff / N:.4%}, gate 0.1 %); {warp_ms:.3f} ms per chunk on the card")
+    if diff > 1e-3 * N or warped < N // 2:
+        raise AssertionError(f"motion correction: {diff} events differ, "
+                             f"{warped} warped")
+    log("phase 14 pose graph and motion correction at real size: ok")
+    return ms, syncs
+
+
+def _phase(fn, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -875,28 +1212,36 @@ def main():
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    peak_cmp = phase_device()
-    k1 = phase_corner_mask(device, K1_SHAPES, (240, 320), peak_cmp)
-    k2 = phase_chol(device)
-    phase_golden(device)
-    launches, ticks, ate = phase_bench_pipeline(device)
-    phase_frontend(device)
-    calls = phase_general_pipeline(device, ate)
-    phase_fused_tick(calls)
-    phase_esvio_golden(device)
-    launches_v, ticks_v = phase_esvio_bench(device)
-    phase_image_frontend(device)
+    peak_cmp = _phase(phase_device)
+    k1 = _phase(phase_corner_mask, device, K1_SHAPES, (240, 320), peak_cmp)
+    k2 = _phase(phase_chol, device)
+    _phase(phase_golden, device)
+    launches, run5 = _phase(phase_bench_pipeline, device)
+    _phase(phase_frontend, device)
+    calls = _phase(phase_general_pipeline, device, run5)
+    _phase(phase_fused_tick, calls)
+    _phase(phase_esvio_golden, device)
+    launches_v, ticks_v = _phase(phase_esvio_bench, device)
+    _phase(phase_image_frontend, device)
+    launches_l, ticks_l = _phase(phase_loops, device)
+    launches_lb, ticks_lb = _phase(phase_loops_bench, device, run5)
+    _phase(phase_pose_graph_and_motion, device)
 
-    # launches: the ESVIO bench run (this slice's main path); the ESIO
-    # bench run's beside them
+    # launches: the loop run of phase 12 (this slice's main path); beside
+    # them the 240x320 run with loop closure (phase 13), the ESVIO bench
+    # run (phase 10) and the ESIO one (phase 5)
     kernels = []
     for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2)):
-        kernels.append(dict(name=k.name, route="cuda", source=k.source,
-                            replaces=k.replaces, launches=launches_v[k.name],
-                            launches_per_tick=launches_v[k.name] / ticks_v,
-                            launches_esio=launches[k.name],
-                            launches_per_tick_esio=launches[k.name] / ticks,
-                            **row))
+        kernels.append(dict(
+            name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+            launches=launches_l[k.name],
+            launches_per_tick=launches_l[k.name] / ticks_l,
+            launches_loops_240x320=launches_lb[k.name],
+            launches_per_tick_loops_240x320=launches_lb[k.name] / ticks_lb,
+            launches_esvio=launches_v[k.name],
+            launches_per_tick_esvio=launches_v[k.name] / ticks_v,
+            launches_esio=launches[k.name],
+            launches_per_tick_esio=launches[k.name] / run5["ticks"], **row))
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """esvio_tpu_torch — the PyTorch/CUDA port of esvio_tpu.
 
 Module for module it mirrors `esvio_tpu` (core/ events/ frontend/ imu/
-solver/ init/ vio/ io/ apps/ utils/), with the same public function names
-and the same array layouts at the public functions, so that every port
-module sits opposite the JAX module it answers to.  The port imports
-`torch` and never `jax`; the two Pallas kernels of the JAX package are
-hand-written CUDA C++ for Hopper (csrc/), built with nvcc at first use.
+solver/ init/ vio/ loop/ io/ apps/ utils/), with the same public
+function names and the same array layouts at the public functions, so
+that every port module sits opposite the JAX module it answers to.  The
+port imports `torch` and never `jax`; the two Pallas kernels of the JAX
+package are hand-written CUDA C++ for Hopper (csrc/), built with nvcc at
+first use.
 
 Importing this package loads nothing heavy: subpackages are imported where
 they are used.

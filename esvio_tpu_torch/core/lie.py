@@ -254,3 +254,8 @@ def g2R(g):
     zero = torch.zeros_like(yaw)
     fix = ypr_to_rot(torch.stack([-yaw, zero, zero], dim=-1))
     return fix @ R0
+
+
+def normalize_angle_deg(a):
+    """Wrap degrees into (-180, 180] (Utility::normalizeAngle)."""
+    return a - 360.0 * torch.floor((a + 180.0) / 360.0)

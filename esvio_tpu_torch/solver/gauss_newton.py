@@ -7,11 +7,13 @@ elimination (port of the live part of esvio_tpu/solver/gauss_newton.py).
   * the normal equations come out in Schur-ready form (Hpp, Hpl, hll, bp,
     bl) — inverse depths have a diagonal block by construction;
   * Levenberg-Marquardt with deferred acceptance on the Jacobi-scaled
-    reduced camera system, solved by kernel K2 (`reduced_solve`).
+    reduced camera system, solved by kernel K2 (`reduced_solve`);
+  * `solve_window_relo`: the same LM with the in-window relocalization
+    pose appended as a 6-dim block (196 unknowns, solved by the library's
+    Cholesky, as the JAX package does for any size but 190).
 
 Not ported: `linearize`, `assemble_normal`, `assemble_normal_fast` (test
-oracles of the JAX package), the eigh branch of `reduced_solve` and
-`solve_window_relo`.
+oracles of the JAX package) and the eigh branch of `reduced_solve`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from esvio_tpu_torch.core import lie
 from esvio_tpu_torch.imu import preintegration as pre
 from esvio_tpu_torch.solver import factors
 from esvio_tpu_torch.solver.chol_solve import chol_solve
@@ -307,6 +310,66 @@ def _select(accept, old, new):
         for f in dataclasses.fields(old)})
 
 
+def _lm_proposal(sys_acc, lam_damp, frozen):
+    """One LM step proposed from the accepted normal equations (Hpp, Hpl,
+    hll, bp, bl, cost): Ceres-style Jacobi column scaling, Schur
+    elimination of the diagonal landmark block, the damped reduced solve.
+    frozen: optional bool rows of Hpp held constant.  Returns (dxp, dlam)
+    unscaled."""
+    Hpp_r, Hpl_r, hll_r, bp_r, bl_r, _ = sys_acc
+    dtype = Hpp_r.dtype
+    n = Hpp_r.shape[0]
+    col_norm = torch.sqrt(torch.cat([torch.diagonal(Hpp_r), hll_r]))
+    active_col = col_norm > 1e-10
+    if frozen is not None:
+        active_col = active_col & ~torch.cat(
+            [frozen, torch.zeros(col_norm.shape[0] - frozen.shape[0],
+                                 dtype=torch.bool, device=frozen.device)])
+    d_inv = torch.where(active_col,
+                        1.0 / torch.where(active_col, col_norm,
+                                          torch.ones_like(col_norm)),
+                        torch.zeros_like(col_norm))
+    dp_i = d_inv[:n]
+    dl_i = d_inv[n:]
+    Hpp = Hpp_r * dp_i[None, :] * dp_i[:, None]
+    Hpl = Hpl_r * dp_i[:, None] * dl_i[None, :]
+    hll = hll_r * dl_i * dl_i
+    bp = bp_r * dp_i
+    bl = bl_r * dl_i
+
+    active_lm = hll > 0.5
+    inv_hll = torch.where(active_lm,
+                          1.0 / torch.where(active_lm, hll, torch.ones_like(hll)),
+                          torch.zeros_like(hll))
+    Hr = Hpp - (Hpl * inv_hll[None, :]) @ Hpl.T
+    br = bp - Hpl @ (bl * inv_hll)
+
+    dxp_s, finite = reduced_solve(Hr, br, lam_damp)
+    dlam_s = -(bl + Hpl.T @ dxp_s) * inv_hll * finite.to(dtype)
+    return dxp_s * dp_i, dlam_s * dl_i
+
+
+def _with_depths(book_img, book_evt, dlam):
+    """Both books with their inverse depths moved by dlam (image lanes
+    first)."""
+    L_img = book_img.un.shape[0]
+    return (dataclasses.replace(book_img,
+                                inv_depth=book_img.inv_depth + dlam[:L_img]),
+            dataclasses.replace(book_evt,
+                                inv_depth=book_evt.inv_depth + dlam[L_img:]))
+
+
+def _lm_accept(accept, book_img, book_evt, bi_new, be_new, sys_acc, sys_new,
+               lam_damp, lam_floor):
+    """The books, accepted system and damping after the accept test."""
+    keep = lambda old, new: dataclasses.replace(old, inv_depth=torch.where(
+        accept, new.inv_depth, old.inv_depth))
+    sys_acc = tuple(torch.where(accept, n, o) for o, n in zip(sys_acc, sys_new))
+    lam_damp = torch.where(accept, torch.clamp(lam_damp / 10.0, min=lam_floor),
+                           torch.clamp(lam_damp * 100.0, max=1e4))
+    return keep(book_img, bi_new), keep(book_evt, be_new), sys_acc, lam_damp
+
+
 def solve_window(state: WindowState, book_img: FeatureBook,
                  book_evt: FeatureBook, preints: pre.Preintegrated, imu_valid,
                  prior: Prior, g, iters: int = 8, cauchy_c: float = 1.0,
@@ -319,7 +382,6 @@ def solve_window(state: WindowState, book_img: FeatureBook,
     proposes a step from them and runs ONE assembly at the proposed state,
     whose cost is the accept test.  No host synchronisation inside."""
     dtype = state.P.dtype
-    L_img = book_img.un.shape[0]
     J0w = prior.J0 * prior.valid.to(dtype)
     prior_H0 = J0w.T @ J0w
     imu_sqrt0 = factors.imu_sqrt_info(preints.covariance)
@@ -334,53 +396,138 @@ def solve_window(state: WindowState, book_img: FeatureBook,
     lam_damp = torch.full((), lam0, dtype=dtype, device=state.P.device)
     costs = []
     for _ in range(iters):
-        Hpp_r, Hpl_r, hll_r, bp_r, bl_r, cost2 = sys_acc
-        # Jacobi column scaling (Ceres-style)
-        col_norm = torch.sqrt(torch.cat([torch.diagonal(Hpp_r), hll_r]))
-        active_col = col_norm > 1e-10
-        if frozen is not None:
-            active_col = active_col & ~torch.cat(
-                [frozen, torch.zeros_like(hll_r, dtype=torch.bool)])
-        d_inv = torch.where(active_col,
-                            1.0 / torch.where(active_col, col_norm,
-                                              torch.ones_like(col_norm)),
-                            torch.zeros_like(col_norm))
-        dp_i = d_inv[:DIM_ALL]
-        dl_i = d_inv[DIM_ALL:]
-        Hpp = Hpp_r * dp_i[None, :] * dp_i[:, None]
-        Hpl = Hpl_r * dp_i[:, None] * dl_i[None, :]
-        hll = hll_r * dl_i * dl_i
-        bp = bp_r * dp_i
-        bl = bl_r * dl_i
-
-        active_lm = hll > 0.5
-        inv_hll = torch.where(active_lm,
-                              1.0 / torch.where(active_lm, hll, torch.ones_like(hll)),
-                              torch.zeros_like(hll))
-        Hr = Hpp - (Hpl * inv_hll[None, :]) @ Hpl.T
-        br = bp - Hpl @ (bl * inv_hll)
-
-        dxp_s, finite = reduced_solve(Hr, br, lam_damp)
-        dlam_s = -(bl + Hpl.T @ dxp_s) * inv_hll * finite.to(dtype)
-        dxp = dxp_s * dp_i
-        dlam = dlam_s * dl_i
-
+        dxp, dlam = _lm_proposal(sys_acc, lam_damp, frozen)
         st_new = apply_delta(state, dxp)
-        bi_new = dataclasses.replace(book_img,
-                                     inv_depth=book_img.inv_depth + dlam[:L_img])
-        be_new = dataclasses.replace(book_evt,
-                                     inv_depth=book_evt.inv_depth + dlam[L_img:])
+        bi_new, be_new = _with_depths(book_img, book_evt, dlam)
         sys_new = assemble(st_new, bi_new, be_new)
-        cost_new = sys_new[5]
-        accept = 0.5 * cost_new < 0.5 * cost2
+        accept = 0.5 * sys_new[5] < 0.5 * sys_acc[5]
         state = _select(accept, state, st_new)
-        book_img = dataclasses.replace(book_img, inv_depth=torch.where(
-            accept, bi_new.inv_depth, book_img.inv_depth))
-        book_evt = dataclasses.replace(book_evt, inv_depth=torch.where(
-            accept, be_new.inv_depth, book_evt.inv_depth))
-        sys_acc = tuple(torch.where(accept, n, o)
-                        for o, n in zip(sys_acc, sys_new))
-        lam_damp = torch.where(accept, torch.clamp(lam_damp / 10.0, min=lam_floor),
-                               torch.clamp(lam_damp * 100.0, max=1e4))
-        costs.append(0.5 * cost_new)
+        book_img, book_evt, sys_acc, lam_damp = _lm_accept(
+            accept, book_img, book_evt, bi_new, be_new, sys_acc, sys_new,
+            lam_damp, lam_floor)
+        costs.append(0.5 * sys_new[5])
     return state, book_img, book_evt, torch.stack(costs)
+
+
+# --------------------------------------------------------------------------
+# In-window fast relocalization
+# --------------------------------------------------------------------------
+
+DIM_RELO = DIM_ALL + 6      # window params + the relo pose block
+
+
+def _relo_family(state: WindowState, book: FeatureBook, exl: int,
+                 relo_P, relo_Q, relo_obs, relo_lane, relo_valid,
+                 cauchy_c: float):
+    """Relo projection rows: a window landmark (lane) reprojected into the
+    old keyframe at the relo pose, the reference's extra ProjectionFactor
+    rows with relo_Pose as the j-side block (estimator.cpp:1988-2022),
+    Cauchy-robust like the window rows.
+
+    relo_obs: (Lr, 2) normalized observations in the old keyframe;
+    relo_lane: (Lr,) lane into `book` (-1 = empty slot); relo_valid: (Lr,).
+    Returns (r (Lr, 2), Jd (Lr, 2, DIM_RELO), Jlam (Lr, 2), lane (Lr,))."""
+    dtype = state.P.dtype
+    L = book.un.shape[0]
+    Lr = relo_lane.shape[0]
+    gate_book = _book_gate(book)
+    start_all = start_frame(book)
+    lane = torch.clamp(relo_lane, 0, L - 1)
+    gate = gate_book[lane] & relo_valid & (relo_lane >= 0)
+    start = start_all[lane]
+    pt_i = _at_start(book.un, start_all)[lane]
+    vel_i = _at_start(book.vel, start_all)[lane]
+    td_i = _at_start(book.td_obs, start_all)[lane]
+    inv_all = torch.where(gate_book & (torch.abs(book.inv_depth) > 1e-4),
+                          book.inv_depth, torch.ones_like(book.inv_depth))
+    ex_p = state.ex_p[exl].expand(Lr, 3)
+    ex_q = state.ex_q[exl].expand(Lr, 4)
+    # plain ProjectionFactor semantics: vel_j = 0, td_j = td_i, so the
+    # old keyframe's observation is not td-compensated
+    r, J = factors.proj22_jac(
+        state.P[start], state.Q[start], relo_P.expand(Lr, 3),
+        relo_Q.expand(Lr, 4), ex_p, ex_q, ex_p, ex_q, inv_all[lane],
+        state.td.expand(Lr), pt_i, vel_i, td_i, relo_obs,
+        torch.zeros_like(relo_obs), td_i)
+    w = factors.cauchy_weight(torch.sum(r * r, -1), cauchy_c) * gate.to(dtype)
+    r = r * w[:, None]
+    J = J * w[:, None, None]
+
+    # dense extended layout [pose 66 | sb 99 | ex 24 | td | relo 6]
+    Oi = _one_hot(start, N_STATES, dtype)
+    Jpi = torch.einsum("li,lra->lria", Oi, J[..., 0:6]).reshape(Lr, 2, 66)
+    Jex6 = J[..., 12:18] + J[..., 18:24]          # shared extrinsic (i = j cam)
+    Jex = torch.nn.functional.pad(Jex6, (exl * 6, 24 - exl * 6 - 6))
+    Jd = torch.cat([Jpi, torch.zeros((Lr, 2, OFF_EX - OFF_SB), dtype=dtype,
+                                     device=r.device),
+                    Jex, J[..., 25:26], J[..., 6:12]], dim=-1)
+    return r, Jd, J[..., 24], lane
+
+
+def relo_residuals(state: WindowState, book: FeatureBook, exl: int,
+                   relo_P, relo_Q, relo_obs, relo_lane, relo_valid):
+    """Unweighted relo reprojection residuals (Lr, 2), for inlier gating."""
+    return _relo_family(state, book, exl, relo_P, relo_Q, relo_obs,
+                        relo_lane, relo_valid, cauchy_c=1e9)[0]
+
+
+def solve_window_relo(state: WindowState, book_img: FeatureBook,
+                      book_evt: FeatureBook, preints: pre.Preintegrated,
+                      imu_valid, prior: Prior, g, relo_P, relo_Q, relo_obs,
+                      relo_lane, relo_valid, relo_book: str = "evt",
+                      iters: int = 8, cauchy_c: float = 1.0,
+                      frozen: Optional[torch.Tensor] = None):
+    """`solve_window` plus the in-window relo pose block
+    (estimator.cpp:1988-2022): the old keyframe's pose is a 6-dim block
+    refined jointly with the window against IMU, vision and the robust
+    relo rows.  Its λ couplings are scatter-added into the landmark
+    columns.  Returns (state', book_img', book_evt', costs, relo_P',
+    relo_Q')."""
+    dtype = state.P.dtype
+    exl = 0 if relo_book == "img" else 1
+    lm_base = 0 if relo_book == "img" else book_img.un.shape[0]
+    J0w = prior.J0 * prior.valid.to(dtype)
+    prior_H0 = J0w.T @ J0w
+    imu_sqrt0 = factors.imu_sqrt_info(preints.covariance)
+
+    def assemble(st, bi, be, rP, rQ):
+        Hpp, Hpl, hll, bp, bl, cost = assemble_normal_reduced(
+            st, bi, be, preints, imu_valid, prior, g, cauchy_c,
+            prior_H=prior_H0, imu_sqrt=imu_sqrt0)
+        r, Jd, Jlam, lane = _relo_family(
+            st, bi if relo_book == "img" else be, exl, rP, rQ, relo_obs,
+            relo_lane, relo_valid, cauchy_c)
+        Jx = Jd.reshape(-1, DIM_RELO)
+        pad6 = (0, 6, 0, 6)
+        HppX = torch.nn.functional.pad(Hpp, pad6) + Jx.T @ Jx
+        bpX = torch.nn.functional.pad(bp, (0, 6)) + Jx.T @ r.reshape(-1)
+        cols = lm_base + lane
+        Hcl = torch.einsum("lra,lr->la", Jd, Jlam)          # (Lr, DIM_RELO)
+        HplX = torch.nn.functional.pad(Hpl, (0, 0, 0, 6)).index_add(1, cols, Hcl.T)
+        hllX = hll.index_add(0, cols, torch.einsum("lr,lr->l", Jlam, Jlam))
+        blX = bl.index_add(0, cols, torch.einsum("lr,lr->l", Jlam, r))
+        return HppX, HplX, hllX, bpX, blX, cost + torch.sum(r * r)
+
+    relo_P = relo_P.to(dtype)
+    relo_Q = relo_Q.to(dtype)
+    sys_acc = assemble(state, book_img, book_evt, relo_P, relo_Q)
+    lam0, lam_floor = damping_schedule(dtype)
+    lam_damp = torch.full((), lam0, dtype=dtype, device=state.P.device)
+    costs = []
+    for _ in range(iters):
+        dxp, dlam = _lm_proposal(sys_acc, lam_damp, frozen)
+        st_new = apply_delta(state, dxp[:DIM_ALL])
+        rP_new = relo_P + dxp[DIM_ALL:DIM_ALL + 3]
+        rQ_new = lie.quat_normalize(lie.quat_mul(
+            relo_Q, lie.delta_q(dxp[DIM_ALL + 3:DIM_ALL + 6])))
+        bi_new, be_new = _with_depths(book_img, book_evt, dlam)
+        sys_new = assemble(st_new, bi_new, be_new, rP_new, rQ_new)
+        accept = 0.5 * sys_new[5] < 0.5 * sys_acc[5]
+        state = _select(accept, state, st_new)
+        relo_P = torch.where(accept, rP_new, relo_P)
+        relo_Q = torch.where(accept, rQ_new, relo_Q)
+        book_img, book_evt, sys_acc, lam_damp = _lm_accept(
+            accept, book_img, book_evt, bi_new, be_new, sys_acc, sys_new,
+            lam_damp, lam_floor)
+        costs.append(0.5 * sys_new[5])
+    return state, book_img, book_evt, torch.stack(costs), relo_P, relo_Q

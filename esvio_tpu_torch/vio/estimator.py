@@ -16,9 +16,12 @@ segment B, the marginalize-and-slide branch the decision picked.
 `fused=False` keeps the general multi-dispatch path, the oracle.
 
 Both estimator paths take image packets (ESVIO) beside the event ones.
-Not ported yet (ROADMAP queue 1): the monocular initialization fallback,
-online extrinsic calibration (`estimate_extrinsic == 2`) and
-relocalization.
+A tick with a pending relocalization (`set_relo_frame`, fed by loop
+closure) takes the general path and its in-window relo solve
+(`gn.solve_window_relo`), as the JAX package does; the next steady tick
+replays the captured graphs again.
+Not ported yet (ROADMAP queue 1): the monocular initialization fallback
+and online extrinsic calibration (`estimate_extrinsic == 2`).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 from esvio_tpu_torch.core import lie, lie_np, prng
 from esvio_tpu_torch.imu import preintegration as pre
 from esvio_tpu_torch.init import alignment, pnp, relative_pose
+from esvio_tpu_torch.solver import factors
 from esvio_tpu_torch.solver import gauss_newton as gn
 from esvio_tpu_torch.solver import marginalization as marg
 from esvio_tpu_torch.solver import window as win
@@ -75,6 +79,10 @@ class Output:
     V: np.ndarray
     solver_flag: str
     marg_flag: int
+    # fast-relocalization drift feedback (relo_relative_pose,
+    # stereo_double2vector3 :1652-1695): set on the tick where a registered
+    # loop match was resolved against the window
+    relo: Optional[dict] = None
     # keyframe snapshot for the pose graph (pubKeyframe, MARGIN_OLD ticks
     # only): dict(stamp, P, Q, ids, pts_w, un)
     keyframe: Optional[dict] = None
@@ -301,9 +309,11 @@ class Estimator:
         self._seen_img = False
         self._post = None
         self.n_solves = 0
+        self.n_relo_solves = 0
         self.lanes_dropped = 0
         self._latest = None
         self._imu_replay = []
+        self._relo = None
         self._update_stereo_extrinsics()
         # segment A of the fused tick as CUDA graphs on the card
         self._graphs = TickGraphs(self.device) \
@@ -574,10 +584,9 @@ class Estimator:
         general multi-dispatch path.  pkt_img: the tick's image packet
         (ESVIO), None when no frame came with it."""
         cfg = self.cfg
-        # relocalization and online extrinsic calibration, which also keep
-        # the JAX package on its general path, are not ported
+        # a tick with a pending relocalization takes the general path
         if (cfg.fused and self.solver_flag == "NON_LINEAR"
-                and self.frame_count == WINDOW):
+                and self._relo is None and self.frame_count == WINDOW):
             return self._process_packets_fused(t, pkt_evt, pkt_img)
         if cfg.estimate_extrinsic:
             self._update_stereo_extrinsics()
@@ -625,10 +634,35 @@ class Estimator:
         preints = self._preintegrate_all()
         imu_valid = self._t(self._imu_valid(), torch.bool)
         ref_p0, ref_q0 = self.ws.P[0], self.ws.Q[0]
-        self.ws, self.book_img, self.book_evt, _costs = gn.solve_window(
-            self.ws, self.book_img, self.book_evt, preints, imu_valid,
-            self.prior, self.g, iters=cfg.solver_iters, cauchy_c=cfg.cauchy_c,
-            frozen=self._t(self._frozen_mask(), torch.bool))
+        frozen = self._t(self._frozen_mask(), torch.bool)
+        relo_prep = self._prepare_relo()
+        if relo_prep is not None and relo_prep["n"] >= 8:
+            # in-window relocalization: the old keyframe's pose is a block
+            # refined jointly with the window (estimator.cpp:1988-2022),
+            # seeded from the matched window frame's own pose (setReloFrame,
+            # estimator.cpp:2789): the payload's pose is in the
+            # loop-corrected world, not the VIO frame of the solve
+            ri = relo_prep["i"]
+            (self.ws, self.book_img, self.book_evt, _costs, rP, rQ) = \
+                gn.solve_window_relo(
+                    self.ws, self.book_img, self.book_evt, preints, imu_valid,
+                    self.prior, self.g, self.ws.P[ri], self.ws.Q[ri],
+                    self._t(relo_prep["obs"]),
+                    self._t(relo_prep["lanes"], torch.int64),
+                    self._t(relo_prep["valid"], torch.bool),
+                    relo_book=relo_prep["book"], iters=cfg.solver_iters,
+                    cauchy_c=cfg.cauchy_c, frozen=frozen)
+            # the gauge correction applies to the relo pose too (:1652-1695)
+            rot, q_rot, p0 = win.gauge_transform(self.ws, ref_p0, ref_q0)
+            relo_prep["refined"] = (
+                rot @ (rP - p0) + ref_p0,
+                lie.quat_normalize(lie.quat_mul(q_rot, rQ)))
+            self.n_relo_solves += 1
+        else:
+            self.ws, self.book_img, self.book_evt, _costs = gn.solve_window(
+                self.ws, self.book_img, self.book_evt, preints, imu_valid,
+                self.prior, self.g, iters=cfg.solver_iters,
+                cauchy_c=cfg.cauchy_c, frozen=frozen)
         self.ws = win.gauge_fix(self.ws, ref_p0, ref_q0)
         if cfg.estimate_extrinsic:
             self._update_stereo_extrinsics()
@@ -636,6 +670,7 @@ class Estimator:
         self.book_evt = fm.remove_failures(self.book_evt)
         post = self._post_fetch(marg_flag, n_tracked)
         self._failure_detection(post)
+        relo = self._finish_relo(relo_prep)
         keyframe = self._keyframe_snapshot(post) \
             if marg_flag == MARGIN_OLD else None
 
@@ -648,7 +683,8 @@ class Estimator:
             self.prior = marg.marginalize_second_new(self.prior)
         self._slide(marg_flag)
         self._post = post
-        return self._output(t, marg_flag, post=post, keyframe=keyframe)
+        return self._output(t, marg_flag, post=post, keyframe=keyframe,
+                            relo=relo)
 
     # ------------------------------------------------------- initialization
     def _try_initialize(self) -> bool:
@@ -890,16 +926,17 @@ class Estimator:
             self.book_img = fm.slide_second_new(self.book_img, win.N_STATES - 1)
             self.book_evt = fm.slide_second_new(self.book_evt, win.N_STATES - 1)
 
-    def _output(self, t, marg_flag, post=None, keyframe=None) -> Output:
+    def _output(self, t, marg_flag, post=None, keyframe=None,
+                relo=None) -> Output:
         k = min(self.frame_count, WINDOW)
         if post is not None:
             return Output(t=t, P=post["P"][k].copy(), Q=post["Q"][k].copy(),
                           V=post["V"][k].copy(), solver_flag=self.solver_flag,
-                          marg_flag=marg_flag, keyframe=keyframe,
+                          marg_flag=marg_flag, relo=relo, keyframe=keyframe,
                           n_tracked=post.get("n_tracked"))
         return Output(t=t, P=_np(self.ws.P[k]), Q=_np(self.ws.Q[k]),
                       V=_np(self.ws.V[k]), solver_flag=self.solver_flag,
-                      marg_flag=marg_flag)
+                      marg_flag=marg_flag, relo=relo)
 
     def _post_fetch(self, marg_flag, n_tracked):
         """Device→host fetch of what the post-solve host logic needs this
@@ -934,3 +971,130 @@ class Estimator:
                     P=post["P"][kf].copy(), Q=post["Q"][kf].copy(),
                     ids=post["kf_ids"][lanes], pts_w=post["kf_pts"][lanes],
                     un=post["kf_un"][lanes])
+
+    # ----------------------------------------------------- loop closure I/O
+    def _loop_book(self):
+        """Book of the loop-closure features: the image book in ESVIO once
+        it holds features, else the event book.  Returns (book, ex_idx)."""
+        if self.cfg.mode == "esio" or not bool(torch.any(self.book_img.active)):
+            return self.book_evt, 1
+        return self.book_img, 0
+
+    def set_relo_frame(self, stamp, match_ids, match_un, relo_P, relo_Q):
+        """Register a fast-relocalization match (setReloFrame,
+        estimator.cpp:2773-2792): an old keyframe at pose (relo_P, relo_Q)
+        observed the features match_ids at normalized coords match_un."""
+        self._relo = dict(
+            stamp=float(stamp), ids=np.asarray(match_ids, np.int32),
+            un=np.asarray(match_un, float),
+            P=np.asarray(relo_P, float), Q=np.asarray(relo_Q, float))
+
+    RELO_CAP = 64   # relo-row capacity of solve_window_relo
+
+    def _prepare_relo(self) -> Optional[dict]:
+        """Host-side match of a pending relo frame against the window: stamp
+        alignment and feature-id → lane mapping, padded to RELO_CAP.  None
+        when no relo is ready; consumes the relo frame once its stamp has
+        matched a window frame (single-shot, as setReloFrame)."""
+        relo = self._relo
+        if relo is None or self.solver_flag != "NON_LINEAR":
+            return None
+        stamps = self.timestamps[: min(self.frame_count, WINDOW) + 1]
+        if relo["stamp"] < stamps[0] - 1e-6:      # slid out of the window
+            self._relo = None
+            return None
+        i = int(np.argmin(np.abs(stamps - relo["stamp"])))
+        if abs(stamps[i] - relo["stamp"]) > 1e-4:
+            return None                            # not arrived yet
+        self._relo = None
+
+        book, ex_idx = self._loop_book()
+        ids = _np(book.ids)
+        active = _np(book.active)
+        lane_of = {int(f): l for l, f in enumerate(ids) if active[l]}
+        CAP = self.RELO_CAP
+        lanes = np.full(CAP, -1, np.int64)
+        obs = np.zeros((CAP, 2))
+        n = 0
+        for m, fid in enumerate(relo["ids"]):
+            l = lane_of.get(int(fid))
+            if l is not None and n < CAP:
+                lanes[n] = l
+                obs[n] = relo["un"][m]
+                n += 1
+        return dict(i=i, n=n, lanes=lanes, obs=obs,
+                    valid=np.arange(CAP) < n, ex_idx=ex_idx,
+                    book="img" if ex_idx == 0 else "evt", relo=relo,
+                    frame_stamp=float(stamps[i]))
+
+    def _finish_relo(self, prep) -> Optional[dict]:
+        """Drift feedback (relative t / q / yaw) from the resolved relo pose.
+
+        Joint path: the pose was refined inside the window solve, and is
+        gated by the count of reprojection inliers of the relo rows at the
+        refined pose.  Fallback (too few in-window matches): PnP-RANSAC of
+        the old keyframe against the window landmarks (`_relo_pnp`)."""
+        if prep is None:
+            return None
+        i = prep["i"]
+        if "refined" in prep:
+            rP, rQ = prep["refined"]
+            book = self.book_img if prep["book"] == "img" else self.book_evt
+            r = _np(gn.relo_residuals(
+                self.ws, book, prep["ex_idx"], rP, rQ, self._t(prep["obs"]),
+                self._t(prep["lanes"], torch.int64),
+                self._t(prep["valid"], torch.bool)))
+            err = np.linalg.norm(r, axis=1) / float(factors.PROJ_SQRT_INFO)
+            if int(((err < 10.0 / 460.0) & prep["valid"]).sum()) < 15:
+                return None                   # MIN_LOOP_NUM (keyframe.h:18)
+            P_w_old = _np(rP).astype(float)
+            R_w_old = _np(lie.quat_to_rot(rQ)).astype(float)
+        else:
+            pose = self._relo_pnp(prep)
+            if pose is None:
+                return None
+            P_w_old, R_w_old = pose
+        P_i = _np(self.ws.P[i]).astype(float)
+        R_i = _np(lie.quat_to_rot(self.ws.Q[i])).astype(float)
+        rel_t = R_w_old.T @ (P_i - P_w_old)
+        rel_R = R_w_old.T @ R_i
+        ypr = lambda R: lie_np.rot_to_ypr(R)[0]
+        return dict(stamp=prep["relo"]["stamp"], frame_stamp=prep["frame_stamp"],
+                    relative_t=rel_t, relative_q=lie_np.rot_to_quat(rel_R),
+                    relative_yaw=ypr(R_i) - ypr(R_w_old),
+                    P_old=P_w_old, Q_old=lie_np.rot_to_quat(R_w_old))
+
+    def _relo_pnp(self, prep):
+        """PnP-RANSAC of the relo pose against the window landmarks (the
+        fallback path).  Returns (P_w_old, R_w_old) or None."""
+        book, _ = self._loop_book()
+        pts_w, valid = fm.world_points(book, self.ws, prep["ex_idx"])
+        pts_w, valid = _np(pts_w), _np(valid)
+        sel_p, sel_o = [], []
+        for m in range(prep["n"]):
+            l = int(prep["lanes"][m])
+            if valid[l]:
+                sel_p.append(pts_w[l])
+                sel_o.append(prep["obs"][m])
+        if len(sel_p) < 6:
+            return None
+        ex_idx = prep["ex_idx"]
+        Rex = _np(lie.quat_to_rot(self.ws.ex_q[ex_idx])).astype(float)
+        tex = _np(self.ws.ex_p[ex_idx]).astype(float)
+        # seed: the matched window frame's pose (the loop revisits it; the
+        # payload's pose is in the loop-corrected world, not this one)
+        i = prep["i"]
+        R_old_b = _np(lie.quat_to_rot(self.ws.Q[i])).astype(float)
+        R_seed_wc = R_old_b @ Rex
+        c_seed = _np(self.ws.P[i]) + R_old_b @ tex
+        key = prng.PRNGKey(int(prep["relo"]["stamp"] * 1e3) & 0x7FFFFFFF,
+                           self.device)
+        sel_pp, sel_op, sel_vp = pnp.pad_points(sel_p, sel_o,
+                                                min_size=self.RELO_CAP)
+        R_cw, c, inl = pnp.pnp_ransac(
+            key, self._t(sel_pp), self._t(sel_op), self._t(sel_vp, torch.bool),
+            self._t(R_seed_wc.T), self._t(c_seed))
+        if int(torch.sum(inl)) < 15:          # MIN_LOOP_NUM (keyframe.h:18)
+            return None
+        R_w_old = _np(R_cw).astype(float).T @ Rex.T   # old KF body→world
+        return _np(c).astype(float) - R_w_old @ tex, R_w_old
