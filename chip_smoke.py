@@ -28,7 +28,14 @@ motion correction on (every closed loop fed back through the estimator's
 in-window relocalization solve, which takes the general path for that
 tick), bench.py's 240x320 pipeline with loop closure against the same
 run without it, and the 4-DoF pose graph's CG solve at 6144 keyframes
-with motion correction at DSEC size.  It checks every result.  One line
+with motion correction at DSEC size.  Then the last estimator
+initialization paths and the config and camera layer: the monocular
+initialization fallback and the online camera-IMU rotation calibration
+(tests/test_estimator.py's drives, K2 in the segment A graph after each
+init), the golden built from reference-style YAML files through
+io.config.load_config, the Kannala-Brandt, MEI and Scaramuzza cameras
+(lift and projection on the card against the CPU, one tracker tick each),
+and ESVIO with loop closure on the loop sequence.  It checks every result.  One line
 per phase, then a JSON line with the kernels, then as the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -368,6 +375,7 @@ def phase_golden(device):
         raise AssertionError(f"golden: K1 launched {k1} times for {ticks:.0f} "
                              f"tracker ticks, K2 {k2} times")
     log("phase 4 golden pipeline: ok")
+    return seq, gt_t, gt_P
 
 
 def _bench_run(pipe, seq, gt_t, gt_P, label):
@@ -1186,6 +1194,331 @@ def phase_pose_graph_and_motion(device):
     log("phase 14 pose graph and motion correction at real size: ok")
     return ms, syncs
 
+# ---------------------------------------------------------------- phase 15/16
+def _estimator_drive(device, kind):
+    """tests/test_estimator.py's mono ("mono") or extrinsic ("ex_rotation")
+    drive (synth_np.estimator_drive) through a port Estimator on the card,
+    on the fused default.  Returns (estimator, trajectory, outputs, per tick
+    (extrinsic calibration done, graph captures, replays), results of the
+    mono fallback's calls, ex_q[1] handed to the first fused tick, kernel
+    launches, wall s)."""
+    import torch
+    from synth_np import estimator_drive, feed_imu
+    from esvio_tpu_torch import _kernels
+    from esvio_tpu_torch.vio import estimator as est_mod
+    traj, ex_p, ex_q, packets, cfg_kw = estimator_drive(kind)
+    est = est_mod.Estimator(est_mod.EstimatorConfig(**cfg_kw), ex_p, ex_q,
+                            device)
+    mono, first_fused = [], []
+    real_mono, real_fused = est._try_initialize_mono, est._process_packets_fused
+    est._try_initialize_mono = lambda: mono.append(real_mono()) or mono[-1]
+
+    def fused(*args):
+        if not first_fused:
+            first_fused.append(est.ws.ex_q[1].cpu().numpy().astype(float))
+        return real_fused(*args)
+    est._process_packets_fused = fused
+    outs, ticks = [], []
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for f, pkt in enumerate(packets):
+        if f > 0:
+            feed_imu(est, traj, f)
+        outs.append(est.process_packets(traj["t"][f], pkt))
+        ticks.append((est._ex_calib_done, est._graphs.n_captures,
+                      est._graphs.n_replays))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    return est, traj, outs, ticks, mono, first_fused, launches, wall
+
+
+def _first(seq, pred):
+    return next((i for i, x in enumerate(seq) if pred(x)), None)
+
+
+def _quat_angle_deg(q, q_ref):
+    import numpy as np
+    from esvio_tpu_torch.core import lie_np
+    d = lie_np.quat_mul(np.array([q[0], -q[1], -q[2], -q[3]]), q_ref)
+    return float(2 * np.degrees(np.arctan2(np.linalg.norm(d[1:]), abs(d[0]))))
+
+
+def phase_mono_init(device):
+    """The mono drive (26 frames, stereo off, seed 7): the stereo bootstrap
+    fails and the estimator initializes through its monocular SfM fallback,
+    then runs K2 inside the segment A graph on every steady tick.  Gate: the
+    JAX test's own, the last frame within 0.4 m
+    (tests/test_estimator.py::test_mono_init_fallback)."""
+    import numpy as np
+    est, traj, outs, ticks, mono, _, launches, wall = _estimator_drive(
+        device, "mono")
+    first_nl = _first(outs, lambda o: o.solver_flag == "NON_LINEAR")
+    err = float(np.linalg.norm(outs[-1].P - traj["P"][-1]))
+    k2, reps = launches["chol_solve"], est._graphs.n_replays
+    log(f"  mono init (fused): {len(outs)} ticks in {wall:.2f} s, mono fallback "
+        f"calls {mono}, first NON_LINEAR frame {first_nl}, last frame "
+        f"{err:.4f} m from the truth (gate 0.4); launches K2 {k2}; graphs "
+        f"{est._graphs.n_captures} captured, {reps} replays")
+    if True not in mono or first_nl is None or not err < 0.4:
+        raise AssertionError(f"mono init: calls {mono}, first NON_LINEAR "
+                             f"{first_nl}, error {err:.4f} m")
+    if k2 == 0 or reps == 0:
+        raise AssertionError(f"mono init: K2 {k2} launches, {reps} replays")
+    log("phase 15 mono init fallback: ok")
+    return launches
+
+
+def phase_ex_rotation(device):
+    """The extrinsic drive (30 frames, seed 11, the left event camera's
+    rotation guessed as the identity, ~16 deg off): the online hand-eye
+    calibration converges, the estimator initializes only after it, and
+    the first captured graph holds the calibrated extrinsic, not the guess.
+    Gate: the JAX test's own, within 6 deg of the truth
+    (tests/test_estimator.py::test_online_ex_rotation_calibration)."""
+    from synth_np import EX_CALIB_Q_BC
+    est, traj, outs, ticks, _, first_fused, launches, wall = _estimator_drive(
+        device, "ex_rotation")
+    accept = _first(ticks, lambda t: t[0])
+    first_nl = _first(outs, lambda o: o.solver_flag == "NON_LINEAR")
+    first_cap = _first(ticks, lambda t: t[1] > 0)
+    ang = _quat_angle_deg(est.ws.ex_q[1].cpu().numpy().astype(float),
+                          EX_CALIB_Q_BC)
+    guess = _quat_angle_deg([1.0, 0, 0, 0], EX_CALIB_Q_BC)
+    cap_ang = _quat_angle_deg(first_fused[0], EX_CALIB_Q_BC) \
+        if first_fused else float("nan")
+    static = est._graphs.state[0].ex_q[1].cpu().numpy().astype(float) \
+        if est._graphs.state is not None else None
+    static_ang = _quat_angle_deg(static, EX_CALIB_Q_BC) \
+        if static is not None else float("nan")
+    k2, reps = launches["chol_solve"], est._graphs.n_replays
+    log(f"  online extrinsic rotation (fused): {len(outs)} ticks in "
+        f"{wall:.2f} s, {len(est._calib_pairs)} calibration pairs, accepted at "
+        f"tick {accept}, first NON_LINEAR {first_nl}, first graph capture "
+        f"{first_cap}; ex_q[1] {ang:.3f} deg from the truth (gate 6; the guess "
+        f"{guess:.2f} deg), handed to the first fused tick {cap_ang:.3f} deg, "
+        f"in the graphs' static window at the end {static_ang:.3f} deg; "
+        f"launches K2 {k2}; graphs {est._graphs.n_captures} captured, "
+        f"{reps} replays")
+    if accept is None or not ang < 6.0:
+        raise AssertionError(f"ex rotation: accepted at {accept}, {ang:.3f} deg")
+    if first_nl is None or first_nl < accept:
+        raise AssertionError(f"ex rotation: NON_LINEAR at {first_nl} before "
+                             f"the calibration at {accept}")
+    if first_cap is None or first_cap <= accept or not cap_ang < 6.0 \
+            or not static_ang < 6.0:
+        raise AssertionError(f"ex rotation: graph captured at {first_cap} "
+                             f"(calibrated at {accept}) with ex_q {cap_ang:.3f}"
+                             f" / {static_ang:.3f} deg off")
+    if k2 == 0 or reps == 0:
+        raise AssertionError(f"ex rotation: K2 {k2} launches, {reps} replays")
+    log("phase 16 online extrinsic rotation: ok")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 17
+def _same_config(a, b, a_cams, b_cams):
+    """Field by field: SystemConfig b equals a (extrinsics and cameras to
+    float32 rounding); raises on the first difference."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from esvio_tpu_torch.io.config import extrinsic_arrays
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "cameras" or f.name.endswith("_calib"):
+            continue                 # the YAML route names its camera files
+        same = np.allclose(x, y, rtol=0, atol=6e-8) \
+            if isinstance(x, np.ndarray) else x == y
+        if not same:
+            raise AssertionError(f"YAML config: {f.name} {y!r} != {x!r}")
+    for xa, ya in zip(extrinsic_arrays(a), extrinsic_arrays(b)):
+        if not np.allclose(xa, ya, rtol=0, atol=6e-8):
+            raise AssertionError("YAML config: extrinsic arrays differ")
+    if set(a_cams) != set(b_cams):
+        raise AssertionError(f"YAML config: cameras {set(b_cams)}")
+    for k in a_cams:
+        ca, cb = a_cams[k], b_cams[k]
+        for name in ("fx", "fy", "cx", "cy", "dist", "xi", "poly", "inv_poly",
+                     "affine"):
+            if not torch.equal(getattr(ca, name), getattr(cb, name)):
+                raise AssertionError(f"YAML config: camera {k} {name}")
+        if (ca.kind, ca.width, ca.height) != (cb.kind, cb.width, cb.height):
+            raise AssertionError(f"YAML config: camera {k}")
+    return len(dataclasses.fields(a)), len(a_cams)
+
+
+def phase_yaml_golden(device, sequence):
+    """The ESIO golden built from reference-style YAML files: its
+    configuration and cameras written as config/esvio/esvio.yaml and the
+    camodocal camera files are (tests/test_run_cli.py's dialect), read
+    back by io.config.load_config, held field by field against phase 4's
+    in-code configuration, and run by Pipeline.run on phase 4's sequence
+    under phase 4's gates."""
+    import tempfile
+    import torch
+    from synth_np import GOLDEN, golden_gates, vio_pipeline
+    from esvio_tpu_torch import _kernels
+    make_code, seq, gt_t, gt_P = vio_pipeline(device, **GOLDEN,
+                                              sequence=sequence)
+    with tempfile.TemporaryDirectory() as d:
+        make_yaml, *_ = vio_pipeline(device, **GOLDEN, sequence=sequence,
+                                     config_dir=d)
+        files = sorted(os.listdir(d))
+        pipe = make_yaml()
+    ref = make_code()
+    n_fields, n_cams = _same_config(ref.sys_cfg, pipe.sys_cfg, ref.cams,
+                                    pipe.cams)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    g = golden_gates(res, gt_t, gt_P, GOLDEN_NPZ)
+    ticks = res.metrics["ticks"]
+    caps, reps = _graph_use(pipe)
+    log(f"  YAML-loaded golden ESIO: files {files}, {n_fields} SystemConfig "
+        f"fields and {n_cams} cameras equal to phase 4's; {ticks:.0f} ticks "
+        f"in {wall:.2f} s ({ticks / wall:.2f} ticks/s), {g['n_stamps']} "
+        f"NON_LINEAR stamps (golden {g['n_golden']}), max dev "
+        f"{g['max_dev_4dof']:.4f} m after the alignment ({g['max_dev']:.4f} m "
+        f"unaligned), ATE {g['ate']:.4f} m (golden {g['ate_golden']:.4f} m); "
+        f"launches {launches}; graphs {caps} captured, {reps} replays")
+    if not (g["stamps_ok"] and g["ate_ok"]
+            and g["max_dev_4dof"] < GOLDEN_MAX_DEV_M):
+        raise AssertionError(f"YAML-loaded golden: gates missed {g}")
+    if launches["corner_mask"] != ticks or launches["chol_solve"] == 0:
+        raise AssertionError(f"YAML-loaded golden: launches {launches} in "
+                             f"{ticks:.0f} ticks")
+    log("phase 17 YAML-loaded golden pipeline: ok")
+    return launches, ticks
+
+
+# ---------------------------------------------------------------- phase 18
+def phase_camera_models(device):
+    """Kannala-Brandt, MEI and Scaramuzza cameras (synth_np's test cameras,
+    loaded from camodocal YAML files): lift and projection of every pixel
+    of a 260x346 grid on the card against the same calls on the CPU, and
+    one event-tracker tick at DAVIS346 with each camera (K1 launched) whose
+    packet's normalized coordinates are the camera's lift of its pixels."""
+    import tempfile
+    import torch
+    from synth_np import write_camera_yaml
+    from esvio_tpu_torch import _kernels
+    from esvio_tpu_torch.core import camera
+    from esvio_tpu_torch.frontend import tracker as trk
+    from esvio_tpu_torch.io.config import load_camera_yaml
+    H, W, E, hz, ticks = 260, 346, 1 << 16, 15, 3
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32), indexing="ij")
+    uv = torch.stack([xx, yy], -1).reshape(-1, 2)
+    depth = torch.linspace(1.0, 8.0, uv.shape[0])[:, None]
+    left = _texture_chunks(H, W, E, hz, ticks, device)
+    right = _texture_chunks(H, W, E, hz, ticks, device, disparity=4)
+    cfg = trk.TrackerConfig(width=W, height=H, capacity=256,
+                            cand_capacity=1024, max_cnt=150, min_dist=10)
+    total = {k.name: 0 for k in _kernels.KERNELS}
+    with tempfile.TemporaryDirectory() as d:
+        for kind in ("KANNALA_BRANDT", "MEI", "SCARAMUZZA"):
+            cam_cpu = load_camera_yaml(write_camera_yaml(d, kind, W, H))
+            cam = cam_cpu.to(device)
+            uv_d = uv.to(device)
+            ray_cpu = camera.lift_projective(cam_cpu, uv)
+            ray = camera.lift_projective(cam, uv_d)
+            lift_err = float((ray.cpu() - ray_cpu).abs().max())
+            xyz = ray_cpu * depth
+            px_cpu = camera.space_to_plane(cam_cpu, xyz)
+            px = camera.space_to_plane(cam, xyz.to(device))
+            proj_err = float((px.cpu() - px_cpu).abs().max())
+            xyz_d = xyz.to(device)
+            lift_ms = _timed(lambda: camera.lift_projective(cam, uv_d), 20)
+            proj_ms = _timed(lambda: camera.space_to_plane(cam, xyz_d), 20)
+            state = trk.init_state(cfg, device)
+            _kernels.reset_launch_counts()
+            for k in range(ticks):
+                state, pkt = trk.track_event_stereo(cfg, cam, cam, state, left[k],
+                                                    right[k], 1.0 + (k + 1) / hz)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in _kernels.KERNELS}
+            for name, n in launches.items():
+                total[name] += n
+            v = pkt.valid
+            n_feat = int(v.sum())
+            un_err = float((pkt.un[v] - camera.lift_projective(
+                cam, pkt.uv[v])[:, :2]).abs().max()) if n_feat else float("inf")
+            log(f"  {kind} {H}x{W}: lift card vs CPU {lift_err:.2e} "
+                f"(gate 1e-5), projection {proj_err:.2e} px (gate 1e-3) over "
+                f"{uv.shape[0]} pixels; {lift_ms:.4f} ms per lift, "
+                f"{proj_ms:.4f} ms per projection of the grid; tracker "
+                f"{ticks} ticks: {n_feat} features, packet un vs the lift of "
+                f"its pixels {un_err:.2e}, K1 {launches['corner_mask']}")
+            if not lift_err <= 1e-5 or not proj_err <= 1e-3:
+                raise AssertionError(f"{kind}: card vs CPU lift {lift_err}, "
+                                     f"projection {proj_err}")
+            if n_feat == 0 or not un_err <= 1e-6 \
+                    or launches["corner_mask"] != ticks:
+                raise AssertionError(f"{kind} tracker: {n_feat} features, un "
+                                     f"{un_err}, launches {launches}")
+    log("phase 18 camera models on the card: ok")
+    return total, 3 * ticks
+
+
+# ---------------------------------------------------------------- phase 19
+def phase_esvio_loops(device):
+    """The loop sequence of tests/test_e2e_loops.py in ESVIO (synth_np.
+    loop_pipeline(mode="esvio"): stereo frames from the same texture at
+    15 Hz, loop keyframes from the prepared left frame) with loop closure
+    and fast relocalization, under that test's gates."""
+    import torch
+    from synth_np import loop_gates, loop_pipeline
+    from esvio_tpu_torch import _kernels
+    make_pipeline, seq, gt_t, gt_P = loop_pipeline(device, mode="esvio")
+    pipe = make_pipeline()
+    st = _instrument_loops(pipe)
+    route = _record_relo_route(pipe)
+    shapes = []
+    real_begin = pipe.loop_closer.begin_keyframe
+    pipe.loop_closer.begin_keyframe = lambda *a, **k: shapes.append(
+        (tuple(a[6].shape), a[6] is pipe.tracker_state.prev_pyr[0][0])) \
+        or real_begin(*a, **k)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    g = loop_gates(res, gt_t, gt_P)
+    ticks = res.metrics["ticks"]
+    relo = sum(1 for r in route if r[0])
+    sm = res.stage_times
+    img_hw = (pipe.img_tracker_cfg.height, pipe.img_tracker_cfg.width)
+    from_frames = all(shp == img_hw and not ts for shp, ts in shapes)
+    log(f"  loops ESVIO 120x160 3.6 s, frames 15 Hz, loop closure + fast "
+        f"reloc (fused): {ticks:.0f} ticks in {wall:.2f} s ({ticks / wall:.2f} "
+        f"ticks/s); ms/tick frontend_event "
+        f"{sm['frontend_event']['mean_ms']:.1f}, frontend_image "
+        f"{sm['frontend_image']['mean_ms']:.1f}, estimator "
+        f"{sm['estimator']['mean_ms']:.1f}; keyframes begun {st['begun'][0]} "
+        f"(from the {img_hw} left frame: {from_frames}), committed "
+        f"{st['commit'][0]}, 4-DoF solves {st['optimize'][0]}; {g['loops']} "
+        f"loops, {relo} relocalization ticks; graphs "
+        f"{pipe.estimator._graphs.n_captures} captured, "
+        f"{pipe.estimator._graphs.n_replays} replays; launches {launches}")
+    log(f"  gates (tests/test_e2e_loops.py:69-88): restarts {g['restarts']}, "
+        f"{g['n_stamps']} NON_LINEAR stamps (>= 30), ATE {g['ate']:.4f} m "
+        f"(< 0.3), loop ATE {g['ate_loop']:.4f} m (<= {g['ate_loop_gate']:.4f})")
+    if not g["ok"]:
+        raise AssertionError(f"ESVIO loops: gates of tests/test_e2e_loops.py "
+                             f"missed: {g}")
+    if not shapes or not from_frames:
+        raise AssertionError(f"ESVIO loops: keyframe images {shapes[:3]}")
+    if launches["corner_mask"] != ticks or launches["chol_solve"] == 0:
+        raise AssertionError(f"ESVIO loops: launches {launches}")
+    log("phase 19 ESVIO loop closure: ok")
+    return launches, ticks
+
+
 
 def _phase(fn, *args):
     """Run one phase and log its wall time."""
@@ -1215,7 +1548,7 @@ def main():
     peak_cmp = _phase(phase_device)
     k1 = _phase(phase_corner_mask, device, K1_SHAPES, (240, 320), peak_cmp)
     k2 = _phase(phase_chol, device)
-    _phase(phase_golden, device)
+    golden_seq = _phase(phase_golden, device)
     launches, run5 = _phase(phase_bench_pipeline, device)
     _phase(phase_frontend, device)
     calls = _phase(phase_general_pipeline, device, run5)
@@ -1226,16 +1559,31 @@ def main():
     launches_l, ticks_l = _phase(phase_loops, device)
     launches_lb, ticks_lb = _phase(phase_loops_bench, device, run5)
     _phase(phase_pose_graph_and_motion, device)
+    launches_m = _phase(phase_mono_init, device)
+    launches_x = _phase(phase_ex_rotation, device)
+    launches_y, ticks_y = _phase(phase_yaml_golden, device, golden_seq)
+    launches_c, ticks_c = _phase(phase_camera_models, device)
+    launches_vl, ticks_vl = _phase(phase_esvio_loops, device)
 
-    # launches: the loop run of phase 12 (this slice's main path); beside
-    # them the 240x320 run with loop closure (phase 13), the ESVIO bench
-    # run (phase 10) and the ESIO one (phase 5)
+    # launches: the loop run of phase 12; beside them this slice's phases
+    # (15 mono init, 16 extrinsic calibration, 17 the YAML-loaded golden,
+    # 18 the camera-model tracker ticks, 19 ESVIO with loop closure), the
+    # 240x320 run with loop closure (phase 13), the ESVIO bench run (phase
+    # 10) and the ESIO one (phase 5)
     kernels = []
     for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2)):
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches_l[k.name],
             launches_per_tick=launches_l[k.name] / ticks_l,
+            launches_mono_init=launches_m[k.name],
+            launches_ex_rotation=launches_x[k.name],
+            launches_yaml_golden=launches_y[k.name],
+            launches_per_tick_yaml_golden=launches_y[k.name] / ticks_y,
+            launches_camera_models=launches_c[k.name],
+            launches_per_tick_camera_models=launches_c[k.name] / ticks_c,
+            launches_esvio_loops=launches_vl[k.name],
+            launches_per_tick_esvio_loops=launches_vl[k.name] / ticks_vl,
             launches_loops_240x320=launches_lb[k.name],
             launches_per_tick_loops_240x320=launches_lb[k.name] / ticks_lb,
             launches_esvio=launches_v[k.name],

@@ -164,6 +164,26 @@ def skew(v):
     return r.reshape(v.shape[:-1] + (3, 3))
 
 
+def _quat_matrix(q, sign: float):
+    w = q[..., 0]
+    v = q[..., 1:]
+    top = torch.cat([w[..., None, None], -v[..., None, :]], dim=-1)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(v.shape[:-1] + (3, 3))
+    bottom = torch.cat([v[..., :, None],
+                        w[..., None, None] * eye + sign * skew(v)], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def quat_left(q):
+    """Qleft: L(q) with L(q) p = q ⊗ p (rows/cols ordered w, x, y, z)."""
+    return _quat_matrix(q, 1.0)
+
+
+def quat_right(p):
+    """Qright: R(p) with R(p) q = q ⊗ p."""
+    return _quat_matrix(p, -1.0)
+
+
 # ---------------------------------------------------------------------------
 # SO(3) exp / log
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """Sliding-window VIO estimator — the state machine around the solver (port
 of esvio_tpu/vio/estimator.py).
 
-  packets → book insertion + parallax keyframe test → (INITIAL: stereo-PnP
-  bootstrap + gyro-bias/gravity alignment) → triangulation → LM window
-  solve → gauge fix → failure detection → marginalization → window slide.
+  packets → book insertion + parallax keyframe test → (INITIAL: online
+  camera-IMU rotation calibration when estimate_extrinsic == 2, then the
+  stereo-PnP bootstrap, or the monocular SfM fallback, + gyro-bias/gravity
+  alignment) → triangulation → LM window solve → gauge fix → failure
+  detection → marginalization → window slide.
 
 Host Python runs the control flow on a few fetched scalars per tick; the
 numeric state (window, books, prior) lives on the estimator's device.
@@ -19,9 +21,9 @@ Both estimator paths take image packets (ESVIO) beside the event ones.
 A tick with a pending relocalization (`set_relo_frame`, fed by loop
 closure) takes the general path and its in-window relo solve
 (`gn.solve_window_relo`), as the JAX package does; the next steady tick
-replays the captured graphs again.
-Not ported yet (ROADMAP queue 1): the monocular initialization fallback
-and online extrinsic calibration (`estimate_extrinsic == 2`).
+replays the captured graphs again.  Ticks before the online extrinsic
+calibration has converged take the general path too, so a captured graph
+never holds the uncalibrated extrinsic.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import torch
 
 from esvio_tpu_torch.core import lie, lie_np, prng
 from esvio_tpu_torch.imu import preintegration as pre
-from esvio_tpu_torch.init import alignment, pnp, relative_pose
+from esvio_tpu_torch.init import alignment, ex_rotation, pnp, relative_pose, sfm
 from esvio_tpu_torch.solver import factors
 from esvio_tpu_torch.solver import gauss_newton as gn
 from esvio_tpu_torch.solver import marginalization as marg
@@ -62,7 +64,11 @@ class EstimatorConfig:
     solver_iters: int = 8
     cauchy_c: float = 1.0
     min_track_for_kf: int = 20
-    estimate_extrinsic: int = 0    # 0 fixed, 1 refine (2 is not ported)
+    estimate_extrinsic: int = 0    # 0 fixed, 1 refine, 2 calibrate-from-scratch
+    # hand-eye acceptance for estimate_extrinsic == 2: False (the reference)
+    # accepts the first solve that passes a gate; True holds out for 3
+    # consecutive solves agreeing within 1° unless the absolute gate holds
+    ex_calib_require_stable: bool = False
     estimate_td: int = 0
     use_stereo_correction: bool = True
     dtype: torch.dtype = torch.float32
@@ -275,9 +281,6 @@ class Estimator:
 
     def __init__(self, cfg: EstimatorConfig, ex_p, ex_q, device="cuda",
                  imu_params: Optional[pre.ImuParams] = None):
-        if cfg.estimate_extrinsic == 2:
-            raise NotImplementedError(
-                "online extrinsic calibration is not ported (ROADMAP 1.10)")
         self.cfg = cfg
         self.device = torch.device(device)
         dt = cfg.dtype
@@ -315,6 +318,12 @@ class Estimator:
         self._imu_replay = []
         self._relo = None
         self._update_stereo_extrinsics()
+        # online camera-IMU rotation calibration (estimate_extrinsic == 2,
+        # estimator.cpp:226-242): the accumulated (q_cam, q_imu) pairs
+        self._calib_pairs = []
+        self._ex_calib_done = cfg.estimate_extrinsic != 2
+        self._ex_calib_stable = 0
+        self._ex_calib_last_q = None
         # segment A of the fused tick as CUDA graphs on the card
         self._graphs = TickGraphs(self.device) \
             if self.device.type == "cuda" else None
@@ -479,6 +488,17 @@ class Estimator:
             ba_all, bg_all, self.imu_params, self._t(mask, torch.bool),
             n_steps=int(self.imu_n[1:].max()))
 
+    def _interval_preint(self, k, ba, bg):
+        """Preintegrate window interval k with the biases ba, bg (3,)."""
+        a0, g0 = self._interval_first_sample(k)
+        mask = np.arange(self.cfg.imu_capacity) < int(self.imu_n[k])
+        return pre.preintegrate_batch(
+            self._t(self.imu_dt[k][None]), self._t(self.imu_acc[k][None]),
+            self._t(self.imu_gyr[k][None]), self._t(a0[None]),
+            self._t(g0[None]), ba[None], bg[None], self.imu_params,
+            self._t(mask[None], torch.bool),
+            n_steps=int(self.imu_n[k])).index(0)
+
     def _propagate_new_frame(self, k):
         """Dead-reckon the pose of frame k from frame k-1 via interval k."""
         ws = self.ws
@@ -487,14 +507,7 @@ class Estimator:
                 self.ws = _replace_rows(ws, k, {n: getattr(ws, n)[k - 1]
                                                 for n in ("P", "Q", "V", "Ba", "Bg")})
             return
-        a0, g0 = self._interval_first_sample(k)
-        mask = np.arange(self.cfg.imu_capacity) < int(self.imu_n[k])
-        p = pre.preintegrate_batch(
-            self._t(self.imu_dt[k][None]), self._t(self.imu_acc[k][None]),
-            self._t(self.imu_gyr[k][None]), self._t(a0[None]),
-            self._t(g0[None]), ws.Ba[k - 1][None], ws.Bg[k - 1][None],
-            self.imu_params, self._t(mask[None], torch.bool),
-            n_steps=int(self.imu_n[k])).index(0)
+        p = self._interval_preint(k, ws.Ba[k - 1], ws.Bg[k - 1])
         Qk = lie.quat_normalize(lie.quat_mul(ws.Q[k - 1], p.delta_q))
         Vk = ws.V[k - 1] + lie.quat_rotate(ws.Q[k - 1], p.delta_v) \
             - self.g * p.sum_dt
@@ -584,9 +597,11 @@ class Estimator:
         general multi-dispatch path.  pkt_img: the tick's image packet
         (ESVIO), None when no frame came with it."""
         cfg = self.cfg
-        # a tick with a pending relocalization takes the general path
+        # a tick with a pending relocalization or an open extrinsic
+        # calibration takes the general path
         if (cfg.fused and self.solver_flag == "NON_LINEAR"
-                and self._relo is None and self.frame_count == WINDOW):
+                and self._ex_calib_done and self._relo is None
+                and self.frame_count == WINDOW):
             return self._process_packets_fused(t, pkt_evt, pkt_img)
         if cfg.estimate_extrinsic:
             self._update_stereo_extrinsics()
@@ -609,6 +624,12 @@ class Estimator:
         self.lanes_dropped += int(vals["n_drop_e"]) + int(vals.get("n_drop_i", 0))
         n_tracked = int(vals["n_trk"])
 
+        # online extrinsic-rotation calibration until the hand-eye solve
+        # converges (estimator.cpp:226-242)
+        if not self._ex_calib_done and fc > 0:
+            self._ex_rotation_step(fc, par_book,
+                                   0 if par_book is self.book_img else 1)
+
         # keyframe test (stereo_addFeatureCheckParallax :416-425)
         if fc < 2 or n_tracked < cfg.min_track_for_kf:
             marg_flag = MARGIN_OLD
@@ -622,10 +643,12 @@ class Estimator:
             if fc < WINDOW:
                 self.frame_count += 1
                 return self._output(t, marg_flag)
-            # Only the stereo bootstrap is ported: when it fails the window
-            # slides and the next tick retries; the monocular GlobalSFM
-            # fallback of the JAX estimator is ROADMAP 1.10.
-            if not self._try_initialize():
+            # initialization waits for the extrinsic calibration
+            # (estimator.cpp:246); the stereo bootstrap first, then the
+            # monocular SfM fallback; on failure the window slides
+            ok = self._ex_calib_done and (
+                self._try_initialize() or self._try_initialize_mono())
+            if not ok:
                 self._slide(MARGIN_OLD)
                 return self._output(t, marg_flag)
             self.solver_flag = "NON_LINEAR"
@@ -685,6 +708,65 @@ class Estimator:
         self._post = post
         return self._output(t, marg_flag, post=post, keyframe=keyframe,
                             relo=relo)
+
+    # -------------------------------------------- extrinsic self-calibration
+    def _ex_rotation_step(self, fc, book, ex_idx):
+        """One CalibrationExRotation round (initial_ex_rotation.cpp via
+        estimator.cpp:226-242): the camera's rotation fc-1 → fc from the
+        essential matrix and the interval's preintegrated body rotation;
+        the hand-eye system is solved once WINDOW pairs exist."""
+        corr = _np(book.obs[:, fc - 1] & book.obs[:, fc] & book.active)
+        if corr.sum() < 9 or self.imu_n[fc] == 0:
+            return
+        key = prng.PRNGKey((int(self.timestamps[fc] * 1e4) + fc) & 0x7FFFFFFF,
+                           self.device)
+        ok, R12 = relative_pose.solve_relative_rotation(
+            key, book.un[:, fc - 1], book.un[:, fc], self._t(corr, torch.bool))
+        if not bool(ok):
+            return
+        q_cam = _np(lie.rot_to_quat(R12))
+        zero = self._t(np.zeros(3))
+        q_imu = _np(self._interval_preint(fc, zero, zero).delta_q)
+        self._calib_pairs = (self._calib_pairs + [(q_cam, q_imu)])[-50:]
+        n_pairs = len(self._calib_pairs)
+        if n_pairs < WINDOW:
+            return
+        # the pairs padded to a power-of-two bucket with identities
+        b = max(16, 1 << (n_pairs - 1).bit_length())
+        qc_b = np.tile([1.0, 0.0, 0.0, 0.0], (b, 1))
+        qi_b = qc_b.copy()
+        qc_b[:n_pairs] = np.stack([p[0] for p in self._calib_pairs])
+        qi_b[:n_pairs] = np.stack([p[1] for p in self._calib_pairs])
+        # the Huber weights use the freshest estimate: the candidate while
+        # the stability window is open (ws.ex_q is written on acceptance
+        # only), else the window extrinsic
+        ric0 = self._t(self._ex_calib_last_q) \
+            if self._ex_calib_last_q is not None else self.ws.ex_q[ex_idx]
+        q, ok, S = ex_rotation.calibrate_ex_rotation(
+            self._t(qc_b), self._t(qi_b), ric0,
+            valid=self._t(np.arange(b) < n_pairs, torch.bool))
+        if not bool(ok):
+            return
+        # acceptance (→ ESTIMATE_EXTRINSIC = 1): the absolute gate accepts
+        # at once; the scale-invariant one, with ex_calib_require_stable,
+        # only after 3 consecutive solves within 1° of each other
+        accept = float(S[2]) > 0.25 or not self.cfg.ex_calib_require_stable
+        if not accept:
+            qn = _np(q).astype(float)
+            if self._ex_calib_last_q is not None:
+                d = abs(float(np.clip(np.abs(qn @ self._ex_calib_last_q),
+                                      0.0, 1.0)))
+                ang_deg = 2.0 * np.degrees(np.arccos(d))
+                self._ex_calib_stable = self._ex_calib_stable + 1 \
+                    if ang_deg < 1.0 else 0
+            self._ex_calib_last_q = qn
+            accept = self._ex_calib_stable >= 3
+        if accept:
+            ex_q = self.ws.ex_q.clone()
+            ex_q[ex_idx] = q
+            self.ws = dataclasses.replace(self.ws, ex_q=ex_q)
+            self._update_stereo_extrinsics()
+            self._ex_calib_done = True
 
     # ------------------------------------------------------- initialization
     def _try_initialize(self) -> bool:
@@ -851,6 +933,44 @@ class Estimator:
                 b, depth_valid=torch.zeros_like(b.depth_valid),
                 inv_depth=torch.zeros_like(b.inv_depth)))
         return True
+
+    def _try_initialize_mono(self) -> bool:
+        """Monocular fallback: global SfM (up to scale) + the with-scale
+        visual-IMU alignment (initialStructure, estimator.cpp:415-558 +
+        visualInitialAlign), for when stereo depth is missing or the stereo
+        PnP chain breaks."""
+        cfg = self.cfg
+        book, ex_idx = self._loop_book()
+        Rex_n = _np(lie.quat_to_rot(self.ws.ex_q[ex_idx]))
+        tex_n = _np(self.ws.ex_p[ex_idx])
+        obs = _np(book.un)
+        mask = _np(book.obs) & _np(book.active)[:, None]
+        key = prng.PRNGKey(int(self.timestamps[0] * 1e3) & 0x7FFFFFFF,
+                           self.device)
+        l, R_rel, t_rel = sfm.find_frame_l(key, obs, mask)
+        if l is None:
+            return False
+        ok, R_wc, t_wc, _, _ = sfm.construct(key, obs, mask, l, R_rel, t_rel)
+        if not ok:
+            return False
+        # cam→c0 rotations and camera centers from the world→cam SfM poses
+        R_cw = np.transpose(R_wc, (0, 2, 1))
+        C = -np.einsum("fij,fj->fi", R_cw, t_wc)
+        Rs_body = np.einsum("fij,kj->fik", R_cw, Rex_n)
+        preints = self._preintegrate_all(ba=np.zeros(3), bg=np.zeros(3))
+        bg = _np(alignment.solve_gyroscope_bias(
+            self._t(Rs_body),
+            preints.jacobian[:, pre.O_R:pre.O_R + 3, pre.O_BG:pre.O_BG + 3],
+            preints.delta_q))
+        preints = self._preintegrate_all(ba=np.zeros(3), bg=bg)
+        ok, g_b0, v_body, s = alignment.linear_alignment(
+            self._t(Rs_body), self._t(C), preints.delta_p, preints.delta_v,
+            preints.sum_dt, self._t(tex_n), cfg.g_norm)
+        s = float(s)
+        if not bool(ok) or s <= 0:
+            return False
+        return self._apply_alignment(Rs_body, s * C, _np(v_body), g_b0, bg,
+                                     tex_n)
 
     # ------------------------------------------------------------- helpers
     def _triangulate(self):

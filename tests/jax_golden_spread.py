@@ -157,6 +157,18 @@ def loops_gauge(n_ticks=16):
               f" inputs differ by {np.abs(a - b).max():.4f}", flush=True)
 
 
+def _init_gauge(res, gt_t, gt_P):
+    """The gauge the initialization fixed, as tests/port_loop_spread.py
+    prints it: velocity and position at the first NON_LINEAR tick and the
+    ground truth's speed there."""
+    import numpy as np
+    t1, V1, P1 = res.stamps[0], np.asarray(res.V[0]), np.asarray(res.P[0])
+    V_gt = np.gradient(gt_P, gt_t, axis=0)[np.argmin(np.abs(gt_t - t1))]
+    return (f"first NON_LINEAR t {t1:.4f}: V {np.round(V1, 4).tolist()} "
+            f"(|V| {np.linalg.norm(V1):.4f}, truth {np.linalg.norm(V_gt):.4f}"
+            f" m/s), P {np.round(P1, 4).tolist()}")
+
+
 def main_loops(argv):
     if argv == ["gauge"]:
         return loops_gauge()
@@ -185,7 +197,8 @@ def main_loops(argv):
               f"ATE {ate_loop:.4f} m (gate {ate * 1.3 + 0.03:.4f}), "
               f"{res.n_loops} loops, {relo['solves']} relocalization solves, "
               f"{relo['feedback']} relo feedbacks; "
-              f"{time.perf_counter() - t0:.0f} s", flush=True)
+              f"{time.perf_counter() - t0:.0f} s; {_init_gauge(res, gt_t, gt_P)}",
+              flush=True)
 
 
 def main(argv):

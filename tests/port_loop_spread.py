@@ -1,30 +1,68 @@
 """The port's standing on the loop sequence of tests/test_e2e_loops.py
 (synth_np.loop_pipeline) with motion correction and fast relocalization
-each on and off, on one device.
+each on and off, or over the event tracker's RANSAC keys, on one device.
 
-    python tests/port_loop_spread.py cuda      # on the card
+    python tests/port_loop_spread.py cuda            # on the card
     python tests/port_loop_spread.py cpu
+    python tests/port_loop_spread.py cuda 1:1 1:2 1:3 1:4
 
-Motion correction with fast relocalization runs twice, to show whether
-repeated runs on one device agree.  One line per run: the gates of
-tests/test_e2e_loops.py (synth_np.loop_gates), the relocalization solves
-and the wall time.  Imports neither jax nor esvio_tpu.
+Without further arguments: motion correction with fast relocalization
+twice (to show whether repeated runs on one device agree), then each
+option off.  Otherwise one run per argument "M" or "M:SEED", M 0 or 1 for
+motion correction (fast relocalization on) and SEED the event tracker's
+RANSAC key, drawn as `jax.random.PRNGKey(SEED)` (tests/jax_golden_spread.py
+loops takes the same arguments for the JAX package).  One line per run:
+the gates of tests/test_e2e_loops.py (synth_np.loop_gates), the
+relocalization solves, the wall time, and the gauge the initialization
+fixed: the velocity and position at the first NON_LINEAR tick, and the
+velocity's error there against the ground truth's (finite differences of
+its positions).  Imports neither jax nor
+esvio_tpu.
 """
 import os
 import sys
 import time
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
 
 
-def main(device):
+def _runs(argv):
+    """[(motion correction, fast relocalization, tracker key seed or None)]."""
+    if not argv:
+        return [(True, True, None), (True, True, None), (False, True, None),
+                (True, False, None), (False, False, None)]
+    out = []
+    for arg in argv:
+        motion, _, seed = arg.partition(":")
+        out.append((bool(int(motion)), True, int(seed) if seed else None))
+    return out
+
+
+def _with_key(real_init, key):
+    """trk.init_state with the event tracker's RANSAC key set to `key`
+    (None: the tracker's own)."""
+    def init_state(cfg, device="cuda", **kw):
+        if key is not None:
+            kw["key"] = key
+        return real_init(cfg, device, **kw)
+    return init_state
+
+
+def main(device, argv):
     import esvio_tpu_torch
+    from esvio_tpu_torch.core import prng
+    from esvio_tpu_torch.frontend import tracker as trk
     from synth_np import loop_gates, loop_pipeline
     esvio_tpu_torch.disable_tf32()
+    real_init = trk.init_state
     made = {}
-    for motion, reloc in ((True, True), (True, True), (False, True),
-                          (True, False), (False, False)):
+    for motion, reloc, seed in _runs(argv):
+        # the pipeline (and every restart) starts its tracker with this key
+        trk.init_state = _with_key(
+            real_init, None if seed is None else prng.PRNGKey(seed, device))
         if motion not in made:
             made[motion] = loop_pipeline(device, motion_correction=motion)
         make_pipeline, seq, gt_t, gt_P = made[motion]
@@ -33,14 +71,21 @@ def main(device):
         t0 = time.perf_counter()
         res = pipe.run(seq)
         g = loop_gates(res, gt_t, gt_P)
+        t1, V1, P1 = res.stamps[0], res.V[0], res.P[0]
+        V_gt = np.gradient(gt_P, gt_t, axis=0)[np.argmin(np.abs(gt_t - t1))]
         print(f"{device} motion_correction {int(motion)} fast_relocalization "
-              f"{int(reloc)}: {g['n_stamps']} NON_LINEAR stamps, restarts "
+              f"{int(reloc)} key {'default' if seed is None else seed}: "
+              f"{g['n_stamps']} NON_LINEAR stamps, restarts "
               f"{g['restarts']}, ATE {g['ate']:.4f} m, loop ATE "
               f"{g['ate_loop']:.4f} m (gate {g['ate_loop_gate']:.4f}), "
               f"{g['loops']} loops, gates met {g['ok']}, "
               f"{pipe.estimator.n_relo_solves} relocalization solves; "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{time.perf_counter() - t0:.1f} s; first NON_LINEAR t {t1:.4f}: "
+              f"V {np.round(V1, 4).tolist()} (|V| {np.linalg.norm(V1):.4f}, "
+              f"truth {np.linalg.norm(V_gt):.4f} m/s), P "
+              f"{np.round(P1, 4).tolist()}", flush=True)
+    trk.init_state = real_init
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "cuda")
+    main(sys.argv[1] if len(sys.argv) > 1 else "cuda", sys.argv[2:])

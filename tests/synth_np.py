@@ -360,7 +360,7 @@ FRAME_HZ = 15          # the ESVIO golden's frames (tests/test_golden_trace.py:3
 
 def vio_pipeline(device, H, W, focal, duration, mode="esio", baseline=0.10,
                  plane_z=4.0, fused=True, img_H=None, img_W=None,
-                 loop_closure=0, sequence=None):
+                 loop_closure=0, sequence=None, config_dir=None):
     """(make_pipeline, seq, gt_t, gt_P): a factory of fresh port pipelines
     on `device` with the settings of the golden trace
     (tests/test_golden_trace.py:31-64, loop closure off unless
@@ -370,7 +370,9 @@ def vio_pipeline(device, H, W, focal, duration, mode="esio", baseline=0.10,
     default the event size, which the pipeline resizes to the image
     tracker's (H, W)); `fused` picks the estimator's steady tick;
     `sequence`: a (seq, gt_t, gt_P) made earlier with the same settings,
-    reused instead of rendered again."""
+    reused instead of rendered again; `config_dir`: the configuration and
+    cameras are written there as reference-style YAML files and the
+    pipeline is built from what `io.config.load_config` reads back."""
     from esvio_tpu_torch.apps.pipeline import Pipeline
     from esvio_tpu_torch.core import camera
     from esvio_tpu_torch.frontend import tracker as trk
@@ -401,6 +403,10 @@ def vio_pipeline(device, H, W, focal, duration, mode="esio", baseline=0.10,
     cams = {"event0": cam, "event1": cam}
     if esvio:
         cams.update(cam0=cam, cam1=cam)
+    if config_dir is not None:
+        from esvio_tpu_torch.io.config import load_config
+        sys_cfg = load_config(write_config_yamls(config_dir, sys_cfg, cams))
+        cams = sys_cfg.cameras
 
     def make_pipeline():
         return Pipeline(sys_cfg, cams, device, tracker_cfg=tracker_cfg,
@@ -448,11 +454,14 @@ LOOP_ACC_BIAS = np.array([0.05, 0.03, -0.08])
 
 def loop_pipeline(device, H=120, W=160, focal=200.0, duration=3.6,
                   motion_correction=False, fused=True, baseline=0.10,
-                  plane_z=4.0):
+                  plane_z=4.0, mode="esio"):
     """(make_pipeline, seq, gt_t, gt_P) of tests/test_e2e_loops.py:31-67 on
     the port: ESIO with loop closure and fast relocalization, the loop
     closer's skip_recent at 12 (the revisit cadence of this sequence), and
-    with motion_correction the IMU-aided event warp on."""
+    with motion_correction the IMU-aided event warp on.  mode "esvio":
+    system_mode 1 with stereo frames at FRAME_HZ rendered from the same
+    texture (as vio_pipeline renders them), the loop keyframes taken from
+    the left frame."""
     from esvio_tpu_torch.apps.pipeline import Pipeline
     from esvio_tpu_torch.core import camera
     from esvio_tpu_torch.frontend import tracker as trk
@@ -462,28 +471,34 @@ def loop_pipeline(device, H=120, W=160, focal=200.0, duration=3.6,
     seq, gt_t, gt_P = planar_vio_sequence_rot(
         np.random.default_rng(0), H=H, W=W, focal=focal, plane_z=plane_z,
         baseline=baseline, duration=duration, texture="smooth",
-        gyr_bias=LOOP_GYR_BIAS, acc_bias=LOOP_ACC_BIAS)
+        gyr_bias=LOOP_GYR_BIAS, acc_bias=LOOP_ACC_BIAS,
+        frame_hz=FRAME_HZ if mode == "esvio" else 0)
+    esvio = mode == "esvio"
     cam = camera.make_pinhole(focal, focal, W / 2, H / 2, width=W, height=H)
     R = np.eye(3)
     sys_cfg = SystemConfig(
-        system_mode=0, event_width=W, event_height=H, image_width=W,
+        system_mode=int(esvio), event_width=W, event_height=H, image_width=W,
         image_height=H, R_body_cam0=R, t_body_cam0=np.zeros(3),
         R_body_cam1=R, t_body_cam1=np.array([baseline, 0, 0]),
         R_body_event0=R, t_body_event0=np.zeros(3),
         R_body_event1=R, t_body_event1=np.array([baseline, 0, 0]),
-        freq=15, max_cnt=60, min_dist=10, loop_closure=1,
-        fast_relocalization=1, do_motion_correction=motion_correction)
+        freq=15, max_cnt=60, min_dist=10, max_cnt_img=60, min_dist_img=10,
+        loop_closure=1, fast_relocalization=1,
+        do_motion_correction=motion_correction)
     tracker_cfg = trk.TrackerConfig(width=W, height=H, capacity=128,
                                     cand_capacity=512, max_cnt=60,
                                     min_dist=10, lk_iters=15)
-    est_cfg = est_mod.EstimatorConfig(mode="esio", evt_capacity=256,
-                                      img_capacity=8, min_track_for_kf=15,
-                                      fused=fused)
+    est_cfg = est_mod.EstimatorConfig(mode=mode, evt_capacity=256,
+                                      img_capacity=256 if esvio else 8,
+                                      min_track_for_kf=15, fused=fused)
+    cams = {"event0": cam, "event1": cam}
+    if esvio:
+        cams.update(cam0=cam, cam1=cam)
 
     def make_pipeline():
-        pipe = Pipeline(sys_cfg, {"event0": cam, "event1": cam}, device,
-                        tracker_cfg=tracker_cfg, est_cfg=est_cfg,
-                        event_capacity=1 << 15)
+        pipe = Pipeline(sys_cfg, cams, device, tracker_cfg=tracker_cfg,
+                        est_cfg=est_cfg, event_capacity=1 << 15,
+                        img_tracker_cfg=tracker_cfg if esvio else None)
         pipe.loop_closer.cfg.skip_recent = 12
         pipe.loop_closer.db.skip_recent = 12
         return pipe
@@ -506,3 +521,335 @@ def loop_gates(res, gt_t, gt_P):
                  and ate < 0.3 and out["loops"] >= 1
                  and ate_loop <= out["ate_loop_gate"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Estimator drives of tests/test_estimator.py: a smooth 6-DoF trajectory
+# with its IMU, landmarks around it and feature packets made from them, in
+# numpy with the rng draws in the same order as tests/synth.py and
+# tests/test_estimator.py.
+
+EST_BASELINE = 0.10     # tests/test_estimator.py BASELINE
+N_LM = 300
+
+
+def _quat_mul(q, p):
+    qw, qx, qy, qz = q
+    pw, px, py, pz = p
+    return np.array([qw * pw - qx * px - qy * py - qz * pz,
+                     qw * px + qx * pw + qy * pz - qz * py,
+                     qw * py - qx * pz + qy * pw + qz * px,
+                     qw * pz + qx * py - qy * px + qz * pw])
+
+
+def quat_to_rot(q):
+    w, x, y, z = q
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return np.array([[1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)],
+                     [2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)],
+                     [2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)]])
+
+
+def simulate_trajectory(rng, n_frames=11, imu_per_frame=20, frame_dt=0.05,
+                        g_w=(0.0, 0.0, 9.80766)):
+    """tests/synth.simulate_trajectory: per-frame P/Q/V and the IMU samples
+    of a smooth trajectory (sinusoidal world acceleration and body rate,
+    midpoint propagation), float64."""
+    g_w = np.asarray(g_w)
+    dt = frame_dt / imu_per_frame
+    n_samples = (n_frames - 1) * imu_per_frame + 1
+    tt = np.arange(n_samples) * dt
+
+    def smooth(scale):
+        w = rng.normal(size=(3, 3)) * scale
+        ph = rng.uniform(0, 2 * np.pi, (3, 3))
+        fr = rng.uniform(0.3, 1.5, (3, 3))
+        return sum(w[:, k][None, :] * np.sin(
+            2 * np.pi * fr[:, k][None, :] * tt[:, None] + ph[:, k][None, :])
+            for k in range(3))
+    a_w = smooth(1.2)
+    w_b = smooth(0.5)
+
+    P = [np.zeros(3)]
+    V = [np.array([0.3, -0.2, 0.1])]
+    Q = [np.array([1.0, 0, 0, 0])]
+    accs = [None] * n_samples
+    for k in range(n_samples):
+        Rk = quat_to_rot(Q[-1])
+        accs[k] = Rk.T @ (a_w[k] + g_w)
+        if k == n_samples - 1:
+            break
+        w_mid = 0.5 * (w_b[k] + w_b[k + 1])
+        q_new = _quat_mul(Q[-1], np.concatenate([[1.0], 0.5 * (w_mid * dt)]))
+        q_new = q_new / np.linalg.norm(q_new)
+        R_new = quat_to_rot(q_new)
+        a0_w = Rk @ accs[k] - g_w
+        a1_w = R_new @ (R_new.T @ (a_w[k + 1] + g_w)) - g_w
+        un_acc = 0.5 * (a0_w + a1_w)
+        P.append(P[-1] + V[-1] * dt + 0.5 * un_acc * dt * dt)
+        V.append(V[-1] + un_acc * dt)
+        Q.append(q_new)
+
+    frames = list(range(0, n_samples, imu_per_frame))
+    return dict(P=np.asarray([P[i] for i in frames]),
+                Q=np.asarray([Q[i] for i in frames]),
+                V=np.asarray([V[i] for i in frames]),
+                t=np.asarray([tt[i] for i in frames]),
+                imu_t=tt, imu_acc=np.asarray(accs), imu_gyr=w_b, dt=dt,
+                imu_per_frame=imu_per_frame, g=g_w)
+
+
+def make_world(rng, traj):
+    """Landmarks sprinkled around the trajectory at usable stereo depths
+    (tests/test_estimator.make_world)."""
+    P = traj["P"]
+    lms = []
+    for k in range(len(P)):
+        for _ in range(N_LM // len(P)):
+            d = rng.uniform(2.0, 5.5)
+            dir_ = rng.normal(size=3)
+            dir_[2] = abs(dir_[2]) + 1.0
+            dir_ /= np.linalg.norm(dir_)
+            lms.append(P[k] + dir_ * d)
+    return np.asarray(lms)
+
+
+def packet_for_frame(traj, k, lms, seen_ids, noise, rng, cap=128,
+                     R_bc=None, baseline=EST_BASELINE):
+    """Stereo feature packet of frame k (tests/test_estimator.
+    packet_for_frame; with R_bc, _packet_rotated_cam: a camera rotated R_bc
+    from the body, t_bc = 0).  Returns (packet, the chosen landmark ids)."""
+    import types
+    pc = (lms - traj["P"][k]) @ quat_to_rot(traj["Q"][k])
+    if R_bc is not None:
+        pc = pc @ R_bc                       # x_c = R_bcᵀ x_b
+    z = pc[:, 2]
+    vis = (z > 1.2) & (z < 6.5)
+    un = pc[:, :2] / np.where(vis, z, 1.0)[:, None]
+    vis &= (np.abs(un[:, 0]) < 0.6) & (np.abs(un[:, 1]) < 0.6)
+    pcr = pc - np.array([baseline, 0, 0.0])
+    unr = pcr[:, :2] / np.where(vis, pcr[:, 2], 1.0)[:, None]
+    idx = np.nonzero(vis)[0]
+    tracked = [i for i in idx if i in seen_ids]
+    fresh = [i for i in idx if i not in seen_ids]
+    chosen = (tracked + fresh)[:cap]
+    ids = np.full(cap, -1, np.int32)
+    valid = np.zeros(cap, bool)
+    un_o = np.zeros((cap, 2))
+    unr_o = np.zeros((cap, 2))
+    rv = np.zeros(cap, bool)
+    for s, i in enumerate(chosen):
+        ids[s] = i
+        valid[s] = True
+        un_o[s] = un[i] + rng.normal(0, noise, 2)
+        unr_o[s] = unr[i] + rng.normal(0, noise, 2)
+        rv[s] = True
+    return types.SimpleNamespace(
+        ids=ids, valid=valid, un=un_o, vel=np.zeros((cap, 2)),
+        right_valid=rv, un_right=unr_o, vel_right=np.zeros((cap, 2)),
+    ), set(chosen)
+
+
+# the drives of tests/test_estimator.py's test_mono_init_fallback (seed 7,
+# 26 frames, stereo off) and test_online_ex_rotation_calibration (seed 11,
+# 30 frames, the left event camera rotated ~16° from the identity guess)
+EX_CALIB_Q_BC = np.array([0.98, 0.05, -0.10, 0.08]) / np.linalg.norm(
+    [0.98, 0.05, -0.10, 0.08])
+
+
+def estimator_drive(kind, n_frames=None):
+    """(traj, ex_p, ex_q, packets, cfg_kw) of the mono ("mono") or the
+    online extrinsic-rotation ("ex_rotation") drive: the packets of every
+    frame, made in the order the tests draw them, and the EstimatorConfig
+    keywords of the test."""
+    seed, n = (7, 26) if kind == "mono" else (11, 30)
+    rng = np.random.default_rng(seed)
+    traj = simulate_trajectory(rng, n_frames=n, imu_per_frame=10,
+                               frame_dt=0.05)
+    lms = make_world(rng, traj)
+    B = EST_BASELINE
+    ex_p = np.array([[0, 0, 0], [0, 0, 0], [B, 0, 0], [B, 0, 0]], float)
+    ex_q = np.tile(np.array([1.0, 0, 0, 0]), (4, 1))
+    cfg_kw = dict(mode="esio", evt_capacity=128, img_capacity=8,
+                  min_track_for_kf=15)
+    R_bc = None
+    if kind == "ex_rotation":
+        R_bc = quat_to_rot(EX_CALIB_Q_BC)
+        ex_p[3] = R_bc @ [B, 0, 0]
+        ex_q[3] = EX_CALIB_Q_BC
+        cfg_kw["estimate_extrinsic"] = 2
+    seen = set()
+    packets = []
+    for f in range(n if n_frames is None else n_frames):
+        pkt, seen = packet_for_frame(traj, f, lms, seen, 0.3 / 460.0, rng,
+                                     R_bc=R_bc)
+        if kind == "mono":
+            pkt.right_valid[:] = False          # stereo off entirely
+        packets.append(pkt)
+    return traj, ex_p, ex_q, packets, cfg_kw
+
+
+def feed_imu(est, traj, f):
+    """The IMU samples of interval f (frame f-1 → f) into estimator est."""
+    k_imu = traj["imu_per_frame"]
+    for s in range(k_imu):
+        i = (f - 1) * k_imu + s + 1
+        est.process_imu(traj["dt"], traj["imu_acc"][i], traj["imu_gyr"][i])
+
+
+# ---------------------------------------------------------------------------
+# Reference-style YAML files (the OpenCV FileStorage dialect of the source
+# system's config/*/esvio.yaml, as tests/test_run_cli.py writes them)
+
+def yaml_float(v):
+    """A float as a YAML 1.1 float scalar (its exponent needs a dot:
+    `4e-05` would read as a string), round-tripping exactly."""
+    s = repr(float(v))
+    if "e" in s and "." not in s:
+        s = s.replace("e", ".0e")
+    return s
+
+
+def camera_yaml_text(kind, width, height, **p):
+    """A camodocal camera YAML of model `kind` (PINHOLE, KANNALA_BRANDT, MEI
+    or SCARAMUZZA) with the parameters p (the loader's key names)."""
+    head = (f"%YAML:1.0\n---\nmodel_type: {kind}\ncamera_name: synth\n"
+            f"image_width: {width}\nimage_height: {height}\n")
+    block = lambda name, keys: f"{name}:\n" + "".join(
+        f"   {k}: {yaml_float(p[k])}\n" for k in keys if k in p)
+    if kind == "PINHOLE":
+        return head + block("distortion_parameters", ("k1", "k2", "p1", "p2")) \
+            + block("projection_parameters", ("fx", "fy", "cx", "cy"))
+    if kind == "KANNALA_BRANDT":
+        return head + block("projection_parameters",
+                            ("k2", "k3", "k4", "k5", "mu", "mv", "u0", "v0"))
+    if kind == "MEI":
+        return head + block("mirror_parameters", ("xi",)) \
+            + block("distortion_parameters", ("k1", "k2", "p1", "p2")) \
+            + block("projection_parameters", ("gamma1", "gamma2", "u0", "v0"))
+    if kind == "SCARAMUZZA":
+        return head + block("poly_parameters", tuple(f"p{i}" for i in range(5))) \
+            + "inv_poly_parameters:\n" + "".join(
+                f"   p{i}: {yaml_float(p['inv'][i])}\n"
+                for i in range(len(p["inv"]))) \
+            + block("affine_parameters", ("ac", "ad", "ae", "cx", "cy"))
+    raise ValueError(kind)
+
+
+def _matrix_yaml(name, M):
+    M = np.asarray(M, float)
+    data = ", ".join(repr(float(v)) for v in M.reshape(-1))
+    return (f"{name}: !!opencv-matrix\n   rows: {M.shape[0]}\n"
+            f"   cols: {M.shape[1]}\n   dt: d\n   data: [{data}]\n")
+
+
+def _body_T(R, t):
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, t
+    return T
+
+
+def config_yaml_text(cfg, cams):
+    """A system YAML holding the fields of SystemConfig `cfg` that the
+    loader reads, with the camera files named `<name>.yaml` for each name
+    in `cams` (cam0, cam1, event0, event1)."""
+    keys = dict(system_mode=cfg.system_mode, event_width=cfg.event_width,
+                event_height=cfg.event_height, image_width=cfg.image_width,
+                image_height=cfg.image_height,
+                estimate_extrinsic=cfg.estimate_extrinsic,
+                max_cnt=cfg.max_cnt, max_cnt_img=cfg.max_cnt_img,
+                min_dist=cfg.min_dist, min_dist_img=cfg.min_dist_img,
+                freq=cfg.freq, F_threshold=float(cfg.f_threshold),
+                equalize=cfg.equalize, fisheye=cfg.fisheye,
+                decay_ms=float(cfg.decay_ms),
+                ignore_polarity=int(cfg.ignore_polarity),
+                median_blur_kernel_size=cfg.median_blur_kernel_size,
+                feature_filter_threshold=float(cfg.feature_filter_threshold),
+                Do_motion_correction=int(cfg.do_motion_correction),
+                use_stereo_correction=cfg.use_stereo_correction,
+                max_solver_time=float(cfg.max_solver_time),
+                max_num_iterations=cfg.max_num_iterations,
+                keyframe_parallax=float(cfg.keyframe_parallax),
+                acc_n=float(cfg.acc_n), gyr_n=float(cfg.gyr_n),
+                acc_w=float(cfg.acc_w), gyr_w=float(cfg.gyr_w),
+                g_norm=float(cfg.g_norm), estimate_td=cfg.estimate_td,
+                td=float(cfg.td), loop_closure=cfg.loop_closure,
+                fast_relocalization=cfg.fast_relocalization)
+    out = "%YAML:1.0\n---\n"
+    for k, v in keys.items():
+        out += f"{k}: {v!r}\n"
+    out += f'output_path: "{cfg.output_path}"\n'
+    for key, name in (("cam_left_calib", "cam0"), ("cam_right_calib", "cam1"),
+                      ("event_left_calib", "event0"),
+                      ("event_right_calib", "event1")):
+        if name in cams:
+            out += f'{key}: "{name}.yaml"\n'
+    for name in ("cam0", "cam1", "event0", "event1"):
+        R = getattr(cfg, f"R_body_{name}")
+        if R is not None:
+            out += _matrix_yaml(f"body_T_{name}",
+                                _body_T(R, getattr(cfg, f"t_body_{name}")))
+    return out
+
+
+def write_config_yamls(directory, sys_cfg, cams):
+    """The system YAML `esvio.yaml` and one PINHOLE YAML per (pinhole)
+    camera of `cams` into `directory`; returns the system YAML's path."""
+    import os
+    for name, cam in cams.items():
+        k1, k2, p1, p2 = (float(x) for x in cam.dist.cpu())
+        params = dict(fx=float(cam.fx), fy=float(cam.fy), cx=float(cam.cx),
+                      cy=float(cam.cy), k1=k1, k2=k2, p1=p1, p2=p2)
+        with open(os.path.join(directory, f"{name}.yaml"), "w") as f:
+            f.write(camera_yaml_text("PINHOLE", cam.width, cam.height,
+                                     **params))
+    path = os.path.join(directory, "esvio.yaml")
+    with open(path, "w") as f:
+        f.write(config_yaml_text(sys_cfg, cams))
+    return path
+
+
+CAMERA_KINDS = ("PINHOLE", "KANNALA_BRANDT", "MEI", "SCARAMUZZA")
+
+
+def camera_model_params(kind, width, height):
+    """YAML parameters of a test camera of each model for a (width, height)
+    sensor: a strongly distorted pinhole, a Kannala-Brandt fisheye, a MEI
+    omni camera and a Scaramuzza (OCam) model whose inverse polynomial
+    (degree 8) is fitted to its forward one, within 1e-4 px over the
+    image's radii."""
+    s = width / 346.0
+    if kind == "PINHOLE":
+        return dict(fx=250.0 * s, fy=251.5 * s, cx=width / 2 - 1,
+                    cy=height / 2 + 1, k1=-0.28, k2=0.07, p1=2e-4, p2=-3e-4)
+    if kind == "KANNALA_BRANDT":
+        return dict(mu=240.0 * s, mv=241.0 * s, u0=width / 2 - 1.5,
+                    v0=height / 2 + 0.5, k2=-0.012, k3=0.003, k4=-0.0008,
+                    k5=0.0001)
+    if kind == "MEI":
+        return dict(xi=1.35, gamma1=560.0 * s, gamma2=561.0 * s,
+                    u0=width / 2 - 0.5, v0=height / 2 - 1, k1=-0.22, k2=0.05,
+                    p1=1e-4, p2=-2e-4)
+    if kind == "SCARAMUZZA":
+        r = width / 640.0
+        a0, a2 = -250.0 * r, 8e-4 / r
+        rho = np.linspace(0.0, np.hypot(width, height) / 2 * 1.05, 400)
+        theta = np.arctan2(-1.0, rho / -(a0 + a2 * rho ** 2))
+        inv = np.polynomial.polynomial.polyfit(theta, rho, 8)
+        return dict(p0=a0, p1=0.0, p2=a2, p3=0.0, p4=0.0, inv=list(inv),
+                    ac=1.0005, ad=0.0008, ae=-0.0006, cx=width / 2 + 3.5 * r,
+                    cy=height / 2 - 2.25 * r)
+    raise ValueError(kind)
+
+
+def write_camera_yaml(directory, kind, width, height):
+    """The test camera of model `kind` as a camodocal YAML file in
+    `directory`; returns its path."""
+    import os
+    path = os.path.join(directory, f"{kind.lower()}_{width}x{height}.yaml")
+    with open(path, "w") as f:
+        f.write(camera_yaml_text(kind, width, height,
+                                 **camera_model_params(kind, width, height)))
+    return path

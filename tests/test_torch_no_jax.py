@@ -3,8 +3,11 @@ fails, every module of esvio_tpu_torch imports, two ESIO and two ESVIO
 pipeline ticks run on the CPU, three ESIO ticks with loop closure, fast
 relocalization and motion correction on (the third tick warps its events)
 and their result files and pose graph are written (and the graph loaded
-back), a loop closer registers a keyframe and survives save/load, the CG pose-graph solve runs, and chip_smoke and
-chip_ab import (without running).  Nothing of jax or esvio_tpu may be
+back), a loop closer registers a keyframe and survives save/load, the CG pose-graph solve runs, a pipeline built
+from reference-style YAML files (io.config.load_config) runs two ticks,
+the mono drive of tests/test_estimator.py initializes through the
+monocular fallback, every camera kind loads from its YAML file and lifts
+a pixel, and chip_smoke and chip_ab import (without running).  Nothing of jax or esvio_tpu may be
 loaded along the way.  tests/synth_np.py, which these drives use, is held
 bit for bit against tests/synth.py on the loop sequence's smooth texture
 with IMU biases and noise."""
@@ -68,6 +71,27 @@ SCRIPT = textwrap.dedent("""
         torch.zeros(2, 3), torch.zeros(2), torch.ones(2, dtype=torch.bool),
         cg_iters=20)
     assert torch.isfinite(t2).all() and (t2 - t).abs().max() > 0
+    from synth_np import (CAMERA_KINDS, estimator_drive, feed_imu,
+                          write_camera_yaml)
+    make_pipeline, seq, _, _ = vio_pipeline("cpu", H=120, W=160, focal=200.0,
+                                            duration=0.3, config_dir=tmp)
+    pipe = make_pipeline()
+    assert pipe.sys_cfg.event_left_calib == "event0.yaml", pipe.sys_cfg
+    assert pipe.run(seq, max_frames=2).metrics["ticks"] == 2
+    from esvio_tpu_torch.vio import estimator as est_mod
+    traj, ex_p, ex_q, packets, kw = estimator_drive("mono", 11)
+    est = est_mod.Estimator(est_mod.EstimatorConfig(**kw), ex_p, ex_q, "cpu")
+    for f, pkt in enumerate(packets):
+        if f > 0:
+            feed_imu(est, traj, f)
+        est.process_packets(traj["t"][f], pkt)
+    assert est.solver_flag == "NON_LINEAR", est.solver_flag
+    from esvio_tpu_torch.io.config import load_camera_yaml
+    for kind in CAMERA_KINDS:
+        cam = load_camera_yaml(write_camera_yaml(tmp, kind, 346, 260))
+        ray = camera.lift_projective(cam, torch.tensor([[100.0, 80.0]]))
+        px = camera.space_to_plane(cam, ray)
+        assert torch.isfinite(ray).all() and torch.isfinite(px).all(), kind
     import chip_smoke, chip_ab
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and m.split(".")[0] in ("jax", "jaxlib", "esvio_tpu")]

@@ -7,7 +7,8 @@ registered-dataclass pytree and its port dataclass have the same field
 names, so `to_torch` / `to_jax` convert field by field (recursing into
 nested states).  Converted: SAEState, EventChunk, TrackerState and
 ImageTrackerState (with their PRNG keys), FeaturePacket, WindowState,
-FeatureBook, Prior, Preintegrated, ImuParams, and the pinhole CameraModel.
+FeatureBook, Prior, Preintegrated, ImuParams, and CameraModel of every
+kind (`camera_to_torch`, `camera_to_jax`).
 """
 import contextlib
 import dataclasses
@@ -101,6 +102,28 @@ def camera_pair(fx, fy, cx, cy, width, height, dist=(0.0, 0.0, 0.0, 0.0),
                               device=device))
 
 
+_CAMERA_FIELDS = ("fx", "fy", "cx", "cy", "dist", "xi", "poly", "inv_poly",
+                  "affine")
+
+
+def camera_to_torch(cam, device="cpu"):
+    """JAX CameraModel (any kind) → the port's, float32."""
+    from esvio_tpu_torch.core import camera as tcam
+    return tcam.CameraModel(
+        **{n: _t(np_f32(getattr(cam, n)), device) for n in _CAMERA_FIELDS},
+        kind=cam.kind, width=cam.width, height=cam.height)
+
+
+def camera_to_jax(cam):
+    """The port's CameraModel (any kind) → JAX's, float32."""
+    import jax.numpy as jnp
+    from esvio_tpu.core import camera as jcam
+    return jcam.CameraModel(
+        **{n: jnp.asarray(np_f32(getattr(cam, n).cpu().numpy()))
+           for n in _CAMERA_FIELDS},
+        kind=cam.kind, width=cam.width, height=cam.height)
+
+
 def chunk_pair(t, x, y, p, valid, device="cpu"):
     """The same f32 event chunk in both implementations."""
     import jax.numpy as jnp
@@ -133,8 +156,9 @@ def make_problem(L_img=8, L_evt=64):
 def estimator_to_torch(je, device="cpu"):
     """A port Estimator that starts from the JAX estimator `je`'s state
     and configuration (its `fused` choice included): window, both books
-    (the image book with its live lanes), prior, IMU rings and host flags
-    (whether an image packet was seen among them)."""
+    (the image book with its live lanes), prior, IMU rings, host flags
+    (whether an image packet was seen among them) and the online extrinsic
+    calibration's state."""
     import copy
     from esvio_tpu_torch.solver import gauss_newton as tgn
     from esvio_tpu_torch.solver import window as twin
@@ -148,6 +172,7 @@ def estimator_to_torch(je, device="cpu"):
             solver_iters=c.solver_iters, cauchy_c=c.cauchy_c,
             min_track_for_kf=c.min_track_for_kf,
             estimate_extrinsic=c.estimate_extrinsic,
+            ex_calib_require_stable=c.ex_calib_require_stable,
             estimate_td=c.estimate_td,
             use_stereo_correction=c.use_stereo_correction, fused=c.fused),
         np.asarray(je.ws.ex_p), np.asarray(je.ws.ex_q), device)
@@ -158,7 +183,9 @@ def estimator_to_torch(je, device="cpu"):
     for name in ("frame_count", "solver_flag", "timestamps", "imu_dt",
                  "imu_acc", "imu_gyr", "imu_n", "acc0", "gyr0", "first_imu",
                  "last_marg", "failures", "_prior_valid", "_seen_img", "n_solves",
-                 "lanes_dropped", "_post", "_latest", "_imu_replay"):
+                 "lanes_dropped", "_post", "_latest", "_imu_replay",
+                 "_calib_pairs", "_ex_calib_done", "_ex_calib_stable",
+                 "_ex_calib_last_q"):
         setattr(te, name, copy.deepcopy(getattr(je, name)))
     te._update_stereo_extrinsics()
     return te
