@@ -110,8 +110,7 @@ def _bundle_adjust(R0, t0, pts0, obs, mask, fix_pose, fix_trans,
     return R, t, X, torch.sqrt(torch.sum(r ** 2) / nobs)
 
 
-def construct(key, obs, mask, l, R_rel, t_rel, focal: float = 460.0,
-              debug: bool = False):
+def construct(key, obs, mask, l, R_rel, t_rel, focal: float = 460.0):
     """GlobalSFM::construct (initial_sfm.cpp:204-300).
 
     obs (L, F, 2) numpy normalized observations, mask (L, F) bool, l the
@@ -169,8 +168,6 @@ def construct(key, obs, mask, l, R_rel, t_rel, focal: float = 460.0,
     for i in range(l + 1, newest):
         res = solve_pnp(i, R[i - 1], t[i - 1])
         if res is None:
-            if debug:
-                print(f"sfm: forward PnP failed at frame {i}")
             return fail
         R[i], t[i] = res
         tri_frames(i, newest)
@@ -181,8 +178,6 @@ def construct(key, obs, mask, l, R_rel, t_rel, focal: float = 460.0,
     for i in range(l - 1, -1, -1):
         res = solve_pnp(i, R[i + 1], t[i + 1])
         if res is None:
-            if debug:
-                print(f"sfm: backward PnP failed at frame {i}")
             return fail
         R[i], t[i] = res
         tri_frames(i, l)
@@ -210,7 +205,5 @@ def construct(key, obs, mask, l, R_rel, t_rel, focal: float = 460.0,
         f64(fix_pose, torch.bool), f64(fix_trans, torch.bool))
     rms = float(rms)
     if not np.isfinite(rms) or rms > 10.0 / focal:
-        if debug:
-            print(f"sfm: BA rms {rms * focal:.2f} px — reject")
         return fail
     return (True, Rb.cpu().numpy(), tb.cpu().numpy(), Xb.cpu().numpy(), ptv)

@@ -84,6 +84,48 @@ def test_space_to_plane_matches(kind, tmp_path):
         np.testing.assert_allclose(tp, _pixels(tc, seed=2), atol=0.1, rtol=0)
 
 
+def test_scaramuzza_degree14_float64_matches():
+    """A wide-lens OCam calibration's shape: the forward polynomial of
+    tests/test_camera.py and a degree-14 inverse polynomial over the whole
+    640x480 image, both cameras built in float64 (in float32 such a
+    polynomial loses whole pixels to rounding in either implementation, so
+    only float64 tells a wrong coefficient order from conditioning).  Rays
+    within 1e-9, pixels within 1e-6 px, and the projection inverts the lift
+    within 0.5 px, the fit's own bound, inside the box of
+    tests/test_camera.py (outside ~335 px from the center the lens sees
+    past 90° and the z = 1 normalized ray loses its side)."""
+    Wd, Hd = 640, 480
+    poly = np.array([-216.9657476318, 0.0, 0.0017866911, -0.0000019866,
+                     0.0000000077])
+    rho = np.arange(0.0, np.hypot(Wd, Hd) / 2 * 1.05, 0.1)
+    theta = np.arctan2(sum(poly[k] * rho ** k for k in range(5)), rho)
+    inv_poly = np.polynomial.polynomial.polyfit(theta, rho, 14)
+    assert len(inv_poly) == 15 and inv_poly[14] != 0.0
+    kw = dict(cx=Wd / 2 + 3.5, cy=Hd / 2 - 2.25, affine=(1.0005, 0.0008, -0.0006),
+              width=Wd, height=Hd)
+    jc = jcam.make_scaramuzza(poly, inv_poly, dtype=jnp.float64, **kw)
+    tc = tcam.make_scaramuzza(poly, inv_poly, dtype=torch.float64, **kw)
+    rng = np.random.default_rng(3)
+    uv = np.stack([rng.uniform(0, Wd, 1000), rng.uniform(0, Hd, 1000)], -1)
+    jr = np.asarray(jcam.lift_projective(jc, jnp.asarray(uv)))
+    tr = tcam.lift_projective(tc, torch.tensor(uv)).numpy()
+    assert tr.dtype == np.float64 and np.isfinite(tr).all()
+    np.testing.assert_allclose(tr, jr, atol=1e-9, rtol=0)
+    xyz = tr * rng.uniform(1.0, 8.0, (len(tr), 1))
+    jp = np.asarray(jcam.space_to_plane(jc, jnp.asarray(xyz)))
+    tp = tcam.space_to_plane(tc, torch.tensor(xyz)).numpy()
+    np.testing.assert_allclose(tp, jp, atol=1e-6, rtol=0)
+    # the lift keeps the affine-distorted offsets, so invert on an
+    # affine-free copy
+    kw["affine"] = (1.0, 0.0, 0.0)
+    tc0 = tcam.make_scaramuzza(poly, inv_poly, dtype=torch.float64, **kw)
+    uv_in = uv[(uv[:, 0] > 80) & (uv[:, 0] < Wd - 80) & (uv[:, 1] > 60)
+               & (uv[:, 1] < Hd - 60)]
+    back = tcam.space_to_plane(tc0, tcam.lift_projective(tc0,
+                                                         torch.tensor(uv_in)))
+    assert len(uv_in) > 400 and np.abs(back.numpy() - uv_in).max() < 0.5
+
+
 @pytest.mark.parametrize("kind", list(CAMERAS))
 def test_camera_converters_round_trip(kind, tmp_path):
     jc, tc = _camera_pair(kind, tmp_path)

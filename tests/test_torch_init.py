@@ -283,18 +283,24 @@ def test_mono_init_from_jax_state():
                                    err_msg=name)
 
 
-def test_ex_rotation_drive_matches_jax():
+@pytest.mark.parametrize("require_stable", [False, True])
+def test_ex_rotation_drive_matches_jax(require_stable):
     """The extrinsic drive (identity guess ~16° off) on both estimators in
     lock step up to the init tick: the same calibration pairs, the same
     acceptance tick, the same calibrated rotation, and both initialize on
-    that tick (stopped there, before the window solve)."""
+    that tick (stopped there, before the window solve).  With
+    ex_calib_require_stable the scale-invariant gate waits for 3
+    consecutive solves within 1°: the same stability counts and candidates
+    on every tick."""
     traj, ex_p, ex_q, packets, cfg_kw = synth_np.estimator_drive("ex_rotation")
+    cfg_kw["ex_calib_require_stable"] = require_stable
     je = _jax_estimator(ex_p, ex_q, cfg_kw)
     te = test_.Estimator(test_.EstimatorConfig(fused=False, **cfg_kw), ex_p,
                          ex_q, "cpu")
     stop = lambda: (_ for _ in ()).throw(StopIteration)
     je._triangulate = te._triangulate = stop
     done = {"j": None, "t": None}
+    stable_seen = []
     for f, pkt in enumerate(packets):
         flags = {}
         for k, e in (("j", je), ("t", te)):
@@ -314,9 +320,21 @@ def test_ex_rotation_drive_matches_jax():
             np.testing.assert_allclose(s * tc, jc, atol=1e-3)
             np.testing.assert_allclose(ti, ji, atol=1e-5)
         assert flags["j"] == flags["t"], f
-        if flags["j"] == "NON_LINEAR":
+        assert je._ex_calib_stable == te._ex_calib_stable, f
+        assert (je._ex_calib_last_q is None) == (te._ex_calib_last_q is None)
+        if je._ex_calib_last_q is not None:
+            stable_seen.append(je._ex_calib_stable)
+            jl, tl = je._ex_calib_last_q, te._ex_calib_last_q
+            np.testing.assert_allclose(np.sign(float(jl @ tl)) * tl, jl,
+                                       atol=1e-3)
+        if flags["j"] == "NON_LINEAR" or (require_stable
+                                          and done["j"] is not None):
             break
+    # the acceptance tick; without the stability window both initialize on
+    # it (with it, the drive stops there)
     assert done["j"] is not None and done["j"] == done["t"] == f
+    # the stability window ran (and only with the option on)
+    assert bool(stable_seen) == require_stable, stable_seen
     # the drive's calibrated rotations: their pairs differ by the float32
     # essential matrices above, so within 1e-3; the hand-eye solve itself
     # on the JAX side's pairs within 1e-4
@@ -328,7 +346,8 @@ def test_ex_rotation_drive_matches_jax():
     jq2 = jex.calibrate_ex_rotation(*(jnp.asarray(a) for a in args))[0]
     tq2 = tex.calibrate_ex_rotation(*(torch.tensor(a) for a in args))[0]
     np.testing.assert_allclose(tq2.numpy(), np.asarray(jq2), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(jq2), jq, atol=1e-6)
+    if not require_stable:   # else the Huber weights came from a candidate
+        np.testing.assert_allclose(np.asarray(jq2), jq, atol=1e-6)
 
 
 def _angle_deg(q, q_ref):
