@@ -35,8 +35,14 @@ initialization fallback and the online camera-IMU rotation calibration
 init), the golden built from reference-style YAML files through
 io.config.load_config, the Kannala-Brandt, MEI and Scaramuzza cameras
 (lift and projection on the card against the CPU, one tracker tick each),
-and ESVIO with loop closure on the loop sequence.  It checks every result.  One line
-per phase, then a JSON line with the kernels, then as the last line
+and ESVIO with loop closure on the loop sequence.  Then the runtime
+tools: the run CLI in process (the golden and the 240x320 sequence as npz
+files, --convert of a bz2 rosbag, Pipeline.run with overlap=False),
+estimator checkpoint and resume (into a fresh estimator and into one
+whose CUDA graphs are captured), greedy spacing on the card against the
+CPU, and a device profile of three golden ticks with the JSON-lines
+metrics sink and the visualization dumps.  It checks every result.  One
+line per phase, then a JSON line with the kernels, then as the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -1392,7 +1398,7 @@ def phase_yaml_golden(device, sequence):
         raise AssertionError(f"YAML-loaded golden: launches {launches} in "
                              f"{ticks:.0f} ticks")
     log("phase 17 YAML-loaded golden pipeline: ok")
-    return launches, ticks
+    return launches, ticks, res, ticks / wall
 
 
 # ---------------------------------------------------------------- phase 18
@@ -1520,6 +1526,490 @@ def phase_esvio_loops(device):
 
 
 
+# ---------------------------------------------------------------- phase 20
+CLI_EVENT_CAPACITY = 1 << 15      # the golden pipeline's (synth_np.vio_pipeline)
+
+
+def _cli(argv):
+    """esvio_tpu_torch.apps.run.main(argv) in this process: (exit code, the
+    JSON summary it prints as its last line)."""
+    import contextlib
+    import io
+    from esvio_tpu_torch.apps import run as run_cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run_cli.main(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+RESULT_FILES = ("esvio_result_no_loop.csv", "esvio_result_no_loop.tum")
+
+
+def _cli_files(rc, summary, out_dir, label):
+    """The CLI's exit code, its summary's keys (the JAX CLI's), no restart,
+    and its result files: one row per NON_LINEAR frame in both.  Returns
+    the number of frames."""
+    import warnings
+    import numpy as np
+    n = summary.get("frames", -1)
+    keys = {"config", "seq", "frames", "restarts", "loops", "out", "stage_ms"}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # an empty file when n == 0
+        rows = [np.loadtxt(os.path.join(out_dir, f), delimiter=d, ndmin=2,
+                           usecols=range(c)).shape
+                for f, d, c in zip(RESULT_FILES, (",", None), (11, 8))]
+    if rc != 0 or not keys <= set(summary) or summary["restarts"] != 0:
+        raise AssertionError(f"{label}: exit {rc}, summary {summary}")
+    if rows != [(n, 11), (n, 8)]:
+        raise AssertionError(f"{label}: files {rows} for {n} frames")
+    return n
+
+
+def _same_files(dir_a, dir_b):
+    return all(open(os.path.join(dir_a, f)).read()
+               == open(os.path.join(dir_b, f)).read() for f in RESULT_FILES)
+
+
+def _cli_run(device, argv, label):
+    """The CLI on the card, its launches, ticks and wall s."""
+    import torch
+    from esvio_tpu_torch import _kernels
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, summary = _cli(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    ticks = summary["stage_ms"]["frontend_event"]["n"]
+    if launches["corner_mask"] != ticks:
+        raise AssertionError(f"{label}: K1 launched {launches} in {ticks} ticks")
+    return rc, summary, launches, ticks, wall
+
+
+def phase_cli(device, sequence, res17, rate17):
+    """The run CLI on the card (python -m esvio_tpu_torch.apps.run, called
+    in process with --gt).  It builds its pipeline from the YAML alone, as
+    the JAX CLI does, so its tracker and estimator take their default
+    sizes (256 lanes, 1,024 candidates, 30 LK iterations, 128 book lanes,
+    20 tracked features for a keyframe), not the code-level ones of
+    phases 4 and 17.  On the golden the LK iteration count alone decides
+    whether those defaults initialize (tests/golden_defaults_sweep.py):
+    at 30 the JAX CLI reaches NON_LINEAR in none of the 24 ticks (CPU),
+    nor does the port on the card, while the port on the CPU does from
+    tick 13 after its packets part from the card's on float32 ulps
+    (PERF.md §6).
+    (a) Phase 17's YAML files and the golden as an npz, through the CLI:
+    its files and summary; no NON_LINEAR frame (the JAX CLI's result on
+    these files), or the golden's last stamps within the ATE gate.  Phase
+    17's pipeline on the npz: phase 17's trajectory to the last digit.
+    The CLI's pipeline with the golden's LK iteration count: phase 17's
+    gates (the golden's stamps, ATE, aligned deviation).
+    (b) bench.py's 240x320 sequence (phase 5's) through the CLI:
+    tests/test_run_cli.py's gates (>= 10 NON_LINEAR frames, ATE < 0.3 m,
+    no restart), the result files equal to the last digit to a Pipeline
+    built as the CLI builds it and run in process, K1 once per tick and K2
+    in its solves.
+    (c) --convert of a rosbag of the golden's events and IMU in bz2 chunks
+    (synth_np.write_rosbag): x, y, p equal, t within 1e-6 s; phase 17's
+    pipeline on the converted npz meets phase 17's gates; the CLI on it
+    (12 ticks) as in (a).
+    (d) Phase 17's pipeline with overlap=False: with motion correction
+    off, phase 17's trajectory."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from synth_np import BENCH, GOLDEN, golden_gates, vio_pipeline, write_rosbag
+    from esvio_tpu_torch.apps.pipeline import Pipeline
+    from esvio_tpu_torch.io import datasets as ds
+    from esvio_tpu_torch.io.config import load_config
+    z = np.load(GOLDEN_NPZ)
+    seq, gt_t, gt_P = sequence
+
+    def same_run(a, b):
+        return (a.stamps == b.stamps
+                and np.array_equal(np.asarray(a.P), np.asarray(b.P))
+                and np.array_equal(np.asarray(a.V), np.asarray(b.V)))
+
+    def golden_ok(g):
+        return (g["stamps_ok"] and g["ate_ok"]
+                and g["max_dev_4dof"] < GOLDEN_MAX_DEV_M)
+
+    def cli_golden_ok(n, summary, out_dir):
+        """No NON_LINEAR frame, or the golden's last n stamps within its
+        ATE gate."""
+        if n == 0:
+            return True
+        stamps = np.loadtxt(os.path.join(out_dir, RESULT_FILES[1]),
+                            ndmin=2)[:, 0]
+        return bool(n <= len(z["stamps"]) and np.allclose(
+            stamps, z["stamps"][-n:], rtol=0, atol=1e-6)
+            and (n < 2 or summary["ate_rmse_m"] <= 1.5 * float(z["ate"]) + 0.01))
+
+    with tempfile.TemporaryDirectory() as d:
+        def inputs(name, sequence, **cfg):
+            sub = os.path.join(d, name)
+            os.makedirs(sub)
+            make, s, t, P = vio_pipeline(device, **cfg, sequence=sequence,
+                                         config_dir=sub)
+            ds.save_npz(s, os.path.join(sub, "seq.npz"))
+            np.savez(os.path.join(sub, "gt.npz"), gt_t=t, gt_p=P)
+            argv = ["--config", os.path.join(sub, "esvio.yaml"),
+                    "--gt", os.path.join(sub, "gt.npz"),
+                    "--event-capacity", str(CLI_EVENT_CAPACITY)]
+            return make, s, argv, sub
+
+        # (a) the golden
+        make17, _, argv_g, sub_g = inputs("golden", sequence, **GOLDEN)
+        rc, sum_g, launch_g, ticks_g, wall_g = _cli_run(
+            device, argv_g + ["--seq", os.path.join(sub_g, "seq.npz"),
+                              "--out", os.path.join(sub_g, "out")], "CLI golden")
+        n_g = _cli_files(rc, sum_g, os.path.join(sub_g, "out"), "CLI golden")
+        a_ok = cli_golden_ok(n_g, sum_g, os.path.join(sub_g, "out"))
+        seq_npz = ds.load_npz(os.path.join(sub_g, "seq.npz"))
+        npz_same = same_run(make17().run(seq_npz), res17)
+        cfg_g = load_config(argv_g[1])
+        cli_pipe = Pipeline(cfg_g, cfg_g.cameras, device,
+                            event_capacity=CLI_EVENT_CAPACITY)
+        lk17 = make17().tracker_cfg.lk_iters
+        res_lk = Pipeline(cfg_g, cfg_g.cameras, device,
+                          tracker_cfg=dataclasses.replace(
+                              cli_pipe.tracker_cfg, lk_iters=lk17),
+                          event_capacity=CLI_EVENT_CAPACITY).run(seq_npz)
+        g_lk = golden_gates(res_lk, gt_t, gt_P, GOLDEN_NPZ)
+
+        # (b) bench.py's 240x320 sequence
+        _, seq_b, argv_b, sub_b = inputs("bench", None, **BENCH)
+        rc, sum_b, launches, ticks, wall = _cli_run(
+            device, argv_b + ["--seq", os.path.join(sub_b, "seq.npz"),
+                              "--out", os.path.join(sub_b, "out")], "CLI 240x320")
+        n_b = _cli_files(rc, sum_b, os.path.join(sub_b, "out"), "CLI 240x320")
+        cfg = load_config(os.path.join(sub_b, "esvio.yaml"))
+        res = Pipeline(cfg, cfg.cameras, device,
+                       event_capacity=CLI_EVENT_CAPACITY).run(
+            ds.load_npz(os.path.join(sub_b, "seq.npz")))
+        res.write(os.path.join(sub_b, "ref"))
+        gt = np.load(os.path.join(sub_b, "gt.npz"))
+        same_b = (_same_files(os.path.join(sub_b, "out"), os.path.join(sub_b, "ref"))
+                  and sum_b["ate_rmse_m"] == res.ate(gt["gt_t"], gt["gt_p"],
+                                                     alignment="yaw"))
+
+        # (c) --convert, phase 17's pipeline and the CLI on the converted npz
+        bag = write_rosbag(os.path.join(d, "seq.bag"), seq, GOLDEN["H"],
+                           GOLDEN["W"], compression="bz2")
+        conv = os.path.join(d, "conv.npz")
+        t1 = time.perf_counter()
+        rc_c, sum_c = _cli(["--config", argv_g[1], "--convert", bag, "--out", conv])
+        conv_s = time.perf_counter() - t1
+        c = ds.load_npz(conv)
+        dt_max = 0.0
+        for side in ("events_left", "events_right"):
+            a, b = getattr(seq, side), getattr(c, side)
+            for f in ("x", "y", "p"):
+                if not np.array_equal(getattr(a, f), getattr(b, f)):
+                    raise AssertionError(f"--convert: {side}.{f} differ")
+            dt_max = max(dt_max, float(np.abs(a.t - b.t).max()))
+        dt_max = max(dt_max, float(np.abs(seq.imu.t - c.imu.t).max()))
+        if rc_c != 0 or dt_max > 1e-6 or not np.array_equal(seq.imu.acc, c.imu.acc):
+            raise AssertionError(f"--convert: exit {rc_c}, times {dt_max:.2e} s off")
+        g_conv = golden_gates(make17().run(c), gt_t, gt_P, GOLDEN_NPZ)
+        rc, sum_cc, launch_c, ticks_c, _ = _cli_run(
+            device, argv_g + ["--seq", conv, "--out", os.path.join(d, "conv_out"),
+                              "--max-frames", "12"], "CLI on the converted npz")
+        n_c = _cli_files(rc, sum_cc, os.path.join(d, "conv_out"),
+                         "CLI on the converted npz")
+        c_ok = cli_golden_ok(n_c, sum_cc, os.path.join(d, "conv_out"))
+        bag_mib = os.path.getsize(bag) / 2 ** 20
+
+    # (d) overlap=False
+    serial = make17().run(seq, overlap=False)
+    serial_same = same_run(serial, res17)
+    ate = lambda s: f"{s['ate_rmse_m']:.4f} m" if "ate_rmse_m" in s else "none"
+    gates = lambda g: (f"{g['n_stamps']} NON_LINEAR stamps (golden "
+                       f"{g['n_golden']}), max dev {g['max_dev_4dof']:.4f} m "
+                       f"aligned, ATE {g['ate']:.4f} m")
+    log(f"  CLI on phase 17's YAML + the golden npz: {ticks_g} ticks in "
+        f"{wall_g:.2f} s ({ticks_g / wall_g:.2f} ticks/s end to end; phase 17 "
+        f"{rate17:.2f}), {n_g} NON_LINEAR frames (phase 17: "
+        f"{len(res17.stamps)}; 0 or the golden's last stamps: {a_ok}), ATE "
+        f"{ate(sum_g)}; estimator {sum_g['stage_ms']['estimator']['mean_ms']:.1f}"
+        f" ms/tick; launches {launch_g}")
+    log(f"  phase 17's pipeline on the npz: trajectory equal to phase 17's: "
+        f"{npz_same}; the CLI's pipeline with LK iterations {lk17} (the "
+        f"golden's) instead of {cli_pipe.tracker_cfg.lk_iters}: {gates(g_lk)}")
+    log(f"  CLI on 240x320 (bench.py's sequence, npz + --gt): {ticks} ticks in "
+        f"{wall:.2f} s ({ticks / wall:.2f} ticks/s end to end, loading "
+        f"included), {n_b} NON_LINEAR frames, ATE {ate(sum_b)} (gates >= 10, "
+        f"< 0.3 m); files and ATE equal to the in-process Pipeline's: {same_b}"
+        f"; launches {launches}; stage ms {json.dumps(sum_b['stage_ms'])}")
+    log(f"  --convert: {bag_mib:.1f} MiB bz2 bag, {sum_c['events_left']} left "
+        f"events and {sum_c['imu']} IMU samples in {conv_s:.2f} s, x/y/p "
+        f"equal, times within {dt_max:.2e} s; phase 17's pipeline on it: "
+        f"{gates(g_conv)}; CLI on it: {ticks_c} ticks, {n_c} NON_LINEAR "
+        f"frames, ATE {ate(sum_cc)}; launches {launch_c}")
+    log(f"  phase 17's pipeline with overlap=False: {len(serial.stamps)} "
+        f"NON_LINEAR stamps, trajectory equal to phase 17's: {serial_same}")
+    if not (a_ok and c_ok):
+        raise AssertionError(f"CLI golden: {n_g} frames, ATE {ate(sum_g)}; "
+                             f"on the converted npz {n_c}, {ate(sum_cc)}")
+    if not npz_same:
+        raise AssertionError("phase 17's pipeline on the npz: trajectory "
+                             "differs from phase 17's")
+    if not golden_ok(g_lk):
+        raise AssertionError(f"CLI's pipeline, LK iterations {lk17}: {g_lk}")
+    if not golden_ok(g_conv):
+        raise AssertionError(f"converted npz: gates missed {g_conv}")
+    if not (n_b >= 10 and sum_b["ate_rmse_m"] < 0.3):
+        raise AssertionError(f"CLI 240x320: {n_b} frames, ATE {ate(sum_b)}")
+    if not same_b:
+        raise AssertionError("CLI 240x320: result differs from the in-process "
+                             "Pipeline's")
+    if launches["chol_solve"] == 0:
+        raise AssertionError(f"CLI 240x320: K2 {launches}")
+    if not serial_same:
+        raise AssertionError("overlap=False: trajectory differs from phase 17's")
+    log("phase 20 run CLI: ok")
+    return launches, ticks, ticks / wall
+
+
+# ---------------------------------------------------------------- phase 21
+def phase_checkpoint(device):
+    """Checkpoint and resume on the card: tests/test_checkpoint.py's drive
+    (synth_np.estimator_drive("checkpoint"), 22 frames) on the fused
+    default, straight through twice; saved after frame 16, loaded into a
+    fresh estimator and continued; and loaded back into the saved
+    estimator after it ran on (its segment A graphs captured, so the load
+    writes into their static buffers) and continued again.  P and V of
+    both continuations equal the straight run's (within the two straight
+    runs' own spread, printed), the graphs replay after the load and K2
+    launches in them."""
+    import tempfile
+    import numpy as np
+    import torch
+    from synth_np import estimator_drive, feed_imu
+    from esvio_tpu_torch import _kernels
+    from esvio_tpu_torch.vio import checkpoint
+    from esvio_tpu_torch.vio import estimator as est_mod
+    traj, ex_p, ex_q, packets, kw = estimator_drive("checkpoint")
+    cfg = est_mod.EstimatorConfig(**kw)
+    n, split = len(packets), 16
+    new = lambda: est_mod.Estimator(cfg, ex_p, ex_q, device)
+
+    def feed(est, frames):
+        outs = []
+        for f in frames:
+            if f > 0:
+                feed_imu(est, traj, f)
+            outs.append(est.process_packets(traj["t"][f], packets[f]))
+        if outs[-1].solver_flag != "NON_LINEAR":
+            raise AssertionError("checkpoint drive: not NON_LINEAR")
+        return np.array([np.concatenate([o.P, o.V]) for o in outs])
+
+    straight = [feed(new(), range(n)) for _ in range(2)]
+    spread = float(np.abs(straight[0] - straight[1]).max())
+    est_b = new()
+    feed(est_b, range(split))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "estimator.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_estimator(est_b, path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        kib = os.path.getsize(path) / 1024
+        est_c = new()
+        t0 = time.perf_counter()
+        checkpoint.load_estimator(est_c, path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        _kernels.reset_launch_counts()
+        fresh = feed(est_c, range(split, n))
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        gr = est_c._graphs
+        caps_c, reps_c = gr.n_captures, gr.n_replays
+
+        feed(est_b, range(split, n))             # on past the split
+        caps0, reps0 = est_b._graphs.n_captures, est_b._graphs.n_replays
+        if caps0 == 0:
+            raise AssertionError("checkpoint: no graph captured before the reload")
+        checkpoint.load_estimator(est_b, path)
+        _kernels.reset_launch_counts()
+        again = feed(est_b, range(split, n))
+        k2_b = _kernels.CHOL_SOLVE.launches
+        caps_b = est_b._graphs.n_captures - caps0
+        reps_b = est_b._graphs.n_replays - reps0
+    dev_c = float(np.abs(fresh - straight[0][split:]).max())
+    dev_b = float(np.abs(again - straight[0][split:]).max())
+    log(f"  checkpoint drive {n} frames, saved after {split}: save "
+        f"{save_ms:.2f} ms ({kib:.0f} KiB npz), load {load_ms:.2f} ms; two "
+        f"straight runs apart by {spread:.3e} on P/V; continuation in a fresh "
+        f"estimator {dev_c:.3e} from the straight run (graphs {caps_c} "
+        f"captured, {reps_c} replays after the load; K2 {launches['chol_solve']}"
+        f"), reloaded into the running estimator {dev_b:.3e} ({caps_b} new "
+        f"captures, {reps_b} replays; K2 {k2_b})")
+    if dev_c > spread or dev_b > spread:
+        raise AssertionError(f"checkpoint: continuation {dev_c:.3e} / "
+                             f"{dev_b:.3e} off the straight run (spread "
+                             f"{spread:.3e})")
+    if min(reps_c, reps_b, launches["chol_solve"], k2_b) == 0:
+        raise AssertionError("checkpoint: no graph replay or K2 launch after "
+                             "the load")
+    log("phase 21 checkpoint and resume: ok")
+    return launches, save_ms, load_ms
+
+
+# ---------------------------------------------------------------- phase 22
+def phase_greedy(device):
+    """Greedy spacing on the card: greedy_spacing's keep mask and occupancy
+    against the CPU's at the event tracker's candidate count at 260x346
+    (256 lanes + 1024 candidates), with and without an occupancy prior; one
+    event-tracker tick with spacing="greedy" (through K1) against the same
+    tick on the CPU; ms per call of greedy and grid spacing."""
+    import numpy as np
+    import torch
+    from esvio_tpu_torch import _kernels
+    from esvio_tpu_torch.core import camera
+    from esvio_tpu_torch.frontend import mask
+    from esvio_tpu_torch.frontend import tracker as trk
+    H, W = 260, 346
+    cfg = trk.TrackerConfig(width=W, height=H, spacing="greedy")
+    F, C = cfg.capacity, cfg.cand_capacity
+    rng = np.random.default_rng(3)
+    pri = np.concatenate([1e6 + rng.integers(1, 30, F),
+                          1e5 - np.arange(C)]).astype(np.float32)
+    xs = rng.uniform(0, W - 1, F + C).astype(np.float32)
+    ys = rng.uniform(0, H - 1, F + C).astype(np.float32)
+    valid = np.concatenate([rng.random(F) < 0.6, np.arange(C) < 700])
+    occupied = np.zeros((H, W), bool)
+    occupied[100:160, 120:220] = True
+    args = {dev: [torch.tensor(a, device=dev) for a in (pri, xs, ys, valid)]
+            for dev in (device, "cpu")}
+    kept = []
+    for occ in (None, occupied):
+        out = {dev: mask.greedy_spacing(
+            *args[dev], H, W, cfg.min_dist, cfg.max_cnt,
+            occupied=None if occ is None else torch.tensor(occ, device=dev))
+            for dev in (device, "cpu")}
+        (kd, od), (kh, oh) = out[device], out["cpu"]
+        if not (torch.equal(kd.cpu(), kh) and torch.equal(od.cpu(), oh)):
+            raise AssertionError("greedy spacing: card and CPU differ")
+        kept.append(int(kh.sum()))
+    a = args[device]
+    ms_greedy = _timed(lambda: mask.greedy_spacing(*a, H, W, cfg.min_dist,
+                                                   cfg.max_cnt), 5, warmup=1)
+    ms_grid = _timed(lambda: mask.grid_spacing(*a, H, W, cfg.min_dist,
+                                               cfg.max_cnt), 5, warmup=1)
+
+    dist = (-0.048, 0.011, -0.0002, 0.0001)
+    pkts = {}
+    for dev in (device, "cpu"):
+        cam = camera.make_pinhole(226.38, 226.38, W / 2, H / 2, dist, width=W,
+                                  height=H, device=dev)
+        left = _texture_chunks(H, W, 1 << 16, 15, 1, dev)[0]
+        right = _texture_chunks(H, W, 1 << 16, 15, 1, dev, disparity=4)[0]
+        _kernels.reset_launch_counts()
+        _, pkts[dev] = trk.track_event_stereo(cfg, cam, cam, trk.init_state(cfg, dev),
+                                              left, right, 1.0 + 1 / 15)
+        if dev == device:
+            launches = {k.name: k.launches for k in _kernels.KERNELS}
+    same_ids = torch.equal(pkts[device].ids.cpu(), pkts["cpu"].ids)
+    n_feat = int(pkts["cpu"].valid.sum())
+    log(f"  greedy spacing, {F + C} candidates at {H}x{W}: card = CPU, kept "
+        f"{kept[0]} (with an occupancy prior {kept[1]}); {ms_greedy:.3f} ms per "
+        f"call against grid spacing's {ms_grid:.3f} ms; tracker tick "
+        f"(spacing=greedy): {n_feat} features, ids equal to the CPU's: "
+        f"{same_ids}; launches {launches}")
+    if not same_ids or n_feat == 0 or launches["corner_mask"] == 0:
+        raise AssertionError("greedy tracker tick: ids differ from the CPU's")
+    log("phase 22 greedy spacing: ok")
+    return launches, ms_greedy, ms_grid
+
+
+# ---------------------------------------------------------------- phase 23
+def phase_profile(device, sequence):
+    """Metrics and profile: the golden pipeline (phase 4's configuration,
+    with dump_viz_dir) with utils.metrics.device_profile around three
+    steady ticks (ticks 16-18 fed by chunk_pairs); the Chrome trace names
+    both kernels' __global__ functions and the pipeline's trace() ranges
+    (its StageTimer stages); Metrics(sink=...) writes one JSON line per
+    emit; dump_viz_dir holds the time surface and overlay of every 5th
+    tick."""
+    import contextlib
+    import tempfile
+    import torch
+    from synth_np import GOLDEN, vio_pipeline
+    from esvio_tpu_torch import _kernels
+    from esvio_tpu_torch.apps.pipeline import Pipeline, _sync_pairs
+    from esvio_tpu_torch.io import datasets as ds
+    from esvio_tpu_torch.utils import metrics
+    seq, gt_t, gt_P = sequence
+    make, *_ = vio_pipeline(device, **GOLDEN, sequence=sequence)
+    ref = make()
+    k0, every = 16, 5
+    with tempfile.TemporaryDirectory() as d:
+        viz_dir, trace_dir = os.path.join(d, "viz"), os.path.join(d, "trace")
+        pipe = Pipeline(ref.sys_cfg, ref.cams, device, tracker_cfg=ref.tracker_cfg,
+                        est_cfg=ref.est_cfg, event_capacity=1 << 15,
+                        dump_viz_dir=viz_dir, dump_viz_every=every)
+        cap = pipe.event_capacity
+        pairs = _sync_pairs(ds.iterate_chunks(seq.events_left, 15, cap, device),
+                            ds.iterate_chunks(seq.events_right, 15, cap, device),
+                            0.5 / 15)
+        stack = contextlib.ExitStack()
+        span = {}
+
+        def profiled():
+            for k, p in enumerate(pairs):
+                if k == k0:
+                    stack.enter_context(metrics.device_profile(trace_dir))
+                    span["t0"] = time.perf_counter()
+                if k == k0 + 3:
+                    torch.cuda.synchronize()
+                    span["s"] = time.perf_counter() - span["t0"]
+                    stack.close()
+                yield p
+        _kernels.reset_launch_counts()
+        with stack:
+            res = pipe.run(seq, chunk_pairs=profiled())
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        (trace_file,) = os.listdir(trace_dir)
+        mib = os.path.getsize(os.path.join(trace_dir, trace_file)) / 2 ** 20
+        with open(os.path.join(trace_dir, trace_file)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        found = {k: any(k in nm for nm in names) for k in (
+            "corner_mask_kernel", "chol_solve_kernel", "frontend_event",
+            "estimator")}
+        sink = os.path.join(d, "metrics.jsonl")
+        met = metrics.Metrics(sink=sink)
+        lines = []
+        for t, P in zip(res.stamps, res.P):
+            met.count("frames")
+            met.gauge("x_m", float(P[0]))
+            lines.append(met.emit(t=t))
+        met.close()
+        with open(sink) as f:
+            written = f.read().splitlines()
+        ticks = res.metrics["ticks"]
+        want = {f"{kind}_{t:06d}.png" for t in range(every, int(ticks) + 1, every)
+                for kind in ("ts", "track")}
+        got = set(os.listdir(viz_dir))
+        viz_ok = all(w in got or w + ".npy" in got for w in want) \
+            and len(got) == len(want)
+    log(f"  device profile of ticks {k0}-{k0 + 2} ({span['s'] * 1e3:.0f} ms "
+        f"profiled): {mib:.1f} MiB Chrome trace, {len(names)} distinct names; "
+        f"found {found}; metrics sink {len(written)} lines for "
+        f"{len(lines)} emits; viz files {sorted(got)[:4]}... ({len(got)} for "
+        f"{ticks:.0f} ticks, every {every}); launches {launches}")
+    if not all(found.values()):
+        raise AssertionError(f"device profile: names missing {found}")
+    if written != lines or not lines or any(
+            json.loads(x)["c.frames"] != k + 1 for k, x in enumerate(written)):
+        raise AssertionError("metrics sink: lines differ from the emits")
+    if not viz_ok:
+        raise AssertionError(f"dump_viz_dir: {sorted(got)} for {sorted(want)}")
+    log("phase 23 metrics, profile, viz: ok")
+    return launches, ticks
+
+
+
 def _phase(fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -1561,13 +2051,21 @@ def main():
     _phase(phase_pose_graph_and_motion, device)
     launches_m = _phase(phase_mono_init, device)
     launches_x = _phase(phase_ex_rotation, device)
-    launches_y, ticks_y = _phase(phase_yaml_golden, device, golden_seq)
+    launches_y, ticks_y, res_y, rate_y = _phase(phase_yaml_golden, device,
+                                                golden_seq)
     launches_c, ticks_c = _phase(phase_camera_models, device)
     launches_vl, ticks_vl = _phase(phase_esvio_loops, device)
+    launches_cli, ticks_cli, _ = _phase(phase_cli, device, golden_seq, res_y,
+                                        rate_y)
+    launches_ck, _, _ = _phase(phase_checkpoint, device)
+    launches_g, _, _ = _phase(phase_greedy, device)
+    launches_p, ticks_p = _phase(phase_profile, device, golden_seq)
 
-    # launches: the loop run of phase 12; beside them this slice's phases
-    # (15 mono init, 16 extrinsic calibration, 17 the YAML-loaded golden,
-    # 18 the camera-model tracker ticks, 19 ESVIO with loop closure), the
+    # launches: the loop run of phase 12; beside them the later phases (15
+    # mono init, 16 extrinsic calibration, 17 the YAML-loaded golden, 18 the
+    # camera-model tracker ticks, 19 ESVIO with loop closure, 20 the run
+    # CLI, 21 the continuation after a checkpoint load, 22 the greedy
+    # tracker tick, 23 the profiled golden run), the
     # 240x320 run with loop closure (phase 13), the ESVIO bench run (phase
     # 10) and the ESIO one (phase 5)
     kernels = []
@@ -1582,6 +2080,12 @@ def main():
             launches_per_tick_yaml_golden=launches_y[k.name] / ticks_y,
             launches_camera_models=launches_c[k.name],
             launches_per_tick_camera_models=launches_c[k.name] / ticks_c,
+            launches_cli=launches_cli[k.name],
+            launches_per_tick_cli=launches_cli[k.name] / ticks_cli,
+            launches_checkpoint_resume=launches_ck[k.name],
+            launches_greedy_tick=launches_g[k.name],
+            launches_profile=launches_p[k.name],
+            launches_per_tick_profile=launches_p[k.name] / ticks_p,
             launches_esvio_loops=launches_vl[k.name],
             launches_per_tick_esvio_loops=launches_vl[k.name] / ticks_vl,
             launches_loops_240x320=launches_lb[k.name],

@@ -1,7 +1,10 @@
-"""Feature spacing (port of `grid_spacing`, esvio_tpu/frontend/mask.py —
-the tracker's default; `greedy_spacing` is not ported yet).
+"""Feature spacing (port of esvio_tpu/frontend/mask.py).
 
-Bucket the frame into min_dist-sized cells, keep one winner per cell (the
+`greedy_spacing` is the reference's occupancy mask (Event_setMask /
+setMask, feature_tracker.cpp:88-151): candidates in priority order each
+take their spot when it is still free and paint a filled disc of radius
+min_dist.  `grid_spacing`, the trackers' default, is its parallel form:
+bucket the frame into min_dist-sized cells, keep one winner per cell (the
 highest priority), then iterate winner-take-all suppression among the
 8-cell neighbourhood to a fixed point (≤ suppress_iters sweeps), and cap
 the survivors at max_keep by priority.
@@ -9,6 +12,66 @@ the survivors at max_keep by priority.
 from __future__ import annotations
 
 import torch
+
+
+def _disc_offsets(radius: int, row: int, device):
+    """Flat offsets, in a grid of row length `row`, of the filled disc's
+    cells from its bounding box's top-left corner."""
+    r = torch.arange(-radius, radius + 1, device=device)
+    yy, xx = torch.meshgrid(r, r, indexing="ij")
+    inside = (yy * yy + xx * xx) <= radius * radius
+    return ((yy + radius) * row + (xx + radius))[inside]
+
+
+def greedy_spacing(priority, xs, ys, valid, height: int, width: int,
+                   min_dist: int, max_keep: int, occupied=None):
+    """Greedy min-dist selection.
+
+    Args:
+      priority: (N,) float — larger = selected first (the reference sorts
+        by track count, feature_tracker.cpp:96-99); ties go by index.
+      xs, ys: (N,) float pixel positions.
+      valid: (N,) bool.
+      occupied: optional (H, W) bool initial occupancy (True = blocked).
+
+    Returns:
+      (keep (N,) bool, occupied_out (H, W) bool) — keep ⊆ valid, at most
+      max_keep features, each at least min_dist from any previously kept.
+
+    The scan is sequential: candidate k reads the grid that candidates
+    < k painted.  Each step is a few device operations on indices computed
+    before the loop (the disc's cells as flat offsets from the candidate's
+    pixel), so the loop makes no host read.
+    """
+    N = priority.shape[0]
+    dev = priority.device
+    r = min_dist
+    row = width + 2 * r
+    grid = torch.zeros((height + 2 * r) * row, dtype=torch.int32, device=dev)
+    if occupied is not None:
+        grid.view(height + 2 * r, row)[r:r + height, r:r + width] = \
+            occupied.to(torch.int32)
+
+    inf = torch.full_like(priority, float("inf"))
+    order = torch.sort(torch.where(valid, -priority, inf), stable=True).indices
+    xi = torch.clamp(torch.round(xs).to(torch.int64), 0, width - 1)[order]
+    yi = torch.clamp(torch.round(ys).to(torch.int64), 0, height - 1)[order]
+    corner = yi * row + xi                        # the disc box's top-left
+    centre = (corner + r * row + r)[:, None]      # (N, 1)
+    cells = corner[:, None] + _disc_offsets(r, row, dev)[None]   # (N, D)
+    valid_o = valid[order][:, None]
+    keep_o = torch.zeros((N, 1), dtype=torch.bool, device=dev)
+    budget = torch.full((1,), max_keep, dtype=torch.int32, device=dev)
+    for k in range(N):
+        take = (grid[centre[k]] == 0) & valid_o[k] & (budget > 0)
+        t32 = take.to(torch.int32)
+        grid.index_add_(0, cells[k], t32.expand(cells.shape[1]))
+        keep_o[k] = take
+        budget -= t32
+    keep = torch.empty(N, dtype=torch.bool, device=dev)
+    keep[order] = keep_o[:, 0]
+    occ = grid.view(height + 2 * r, row)[r:r + height, r:r + width] > 0
+    return keep, occ
 
 
 def grid_spacing(priority, xs, ys, valid, height: int, width: int,

@@ -55,7 +55,11 @@ class TrackerConfig:
     use_time_surface_gate: bool = True
     equalize: bool = False         # CLAHE on time surfaces / frames (EQUALIZE)
     median_blur_ksize: int = 0
-    spacing: str = "grid"          # only "grid" is ported
+    spacing: str = "grid"          # "grid" (parallel WTA) | "greedy" (serial scan)
+
+    def __post_init__(self):
+        if self.spacing not in ("grid", "greedy"):
+            raise ValueError(f"spacing {self.spacing!r}: 'grid' or 'greedy'")
 
 
 @dataclasses.dataclass
@@ -93,14 +97,8 @@ class FeaturePacket:
     track_cnt: torch.Tensor     # (F,) int32
 
 
-def _check_ported(cfg: TrackerConfig):
-    if cfg.spacing != "grid":
-        raise NotImplementedError("only grid spacing is ported")
-
-
 def init_state(cfg: TrackerConfig, device="cuda", key=None,
                dtype=torch.float32) -> TrackerState:
-    _check_ported(cfg)
     F = cfg.capacity
     zero_img = torch.zeros((cfg.height, cfg.width), dtype=dtype, device=device)
     z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
@@ -196,8 +194,10 @@ def _refill_and_stereo(cfg: TrackerConfig, cam_left: CameraModel,
     all_x = torch.cat([cur[:, 0], cand_x])
     all_y = torch.cat([cur[:, 1], cand_y])
     all_valid = torch.cat([tracked, cand_valid])
-    keep, _ = mask_mod.grid_spacing(pri, all_x, all_y, all_valid, cfg.height,
-                                    cfg.width, cfg.min_dist, cfg.max_cnt)
+    spacing_fn = mask_mod.grid_spacing if cfg.spacing == "grid" \
+        else mask_mod.greedy_spacing
+    keep, _ = spacing_fn(pri, all_x, all_y, all_valid, cfg.height, cfg.width,
+                         cfg.min_dist, cfg.max_cnt)
     keep_new = keep[F:]
 
     # ---- compaction: kept existing lanes first, then new detections -------
@@ -264,7 +264,6 @@ def track_event_stereo(cfg: TrackerConfig, cam_left: CameraModel,
                        ) -> Tuple[TrackerState, FeaturePacket]:
     """One event tracker tick.  ransac_draws: optional (K, 8) RANSAC draws
     that replace the ones drawn from the state's key (tests inject JAX's)."""
-    _check_ported(cfg)
     C = cfg.cand_capacity
     dtype = state.pts.dtype
     dev = state.pts.device
@@ -344,7 +343,6 @@ def init_image_state(cfg: TrackerConfig, device="cuda", key=None,
                      id_offset: int = 1 << 24) -> ImageTrackerState:
     """Image-path state; ids start at id_offset so the event and image
     books never collide."""
-    _check_ported(cfg)
     F = cfg.capacity
     zero_img = torch.zeros((cfg.height, cfg.width), dtype=dtype, device=device)
     z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
@@ -369,7 +367,6 @@ def track_image_stereo(cfg: TrackerConfig, cam_left: CameraModel,
     """One frame tick: temporal LK + F-RANSAC, Shi-Tomasi refill, stereo LK
     (trackImage, feature_tracker.cpp:164-338).  Frames are (H, W) at the
     config's size."""
-    _check_ported(cfg)
     C = cfg.cand_capacity
     dtype = state.pts.dtype
     dev = state.pts.device

@@ -1,11 +1,21 @@
-"""Sequence containers, event chunking and IMU slicing (port of the
-pipeline's part of esvio_tpu/io/datasets.py, in numpy + torch).
+"""Sequence containers, file loaders, event chunking and IMU slicing (port
+of esvio_tpu/io/datasets.py, in numpy + torch).
+
+The pipeline consumes packed, time-sorted arrays:
+
+  events: t (float64 s), x, y, p   — per camera
+  imu:    t, acc (N, 3), gyr (N, 3)
+  images: t, frames (N, H, W) uint8 (optional)
+
+`load_npz` / `save_npz` use the JAX package's keys, so either package
+reads the other's files; `load_dsec_h5` and `load_mvsec_h5` read the
+public datasets' HDF5 layouts (h5py, imported where it is used); the
+rosbag converter is io/rosbag.py.
 
 `iterate_chunks` follows the JAX pipeline's production packetizer
 (esvio_tpu/native/packetizer.cc): frame k holds the events in
 (edge[k-1], edge[k]] with edges accumulated from t0 by 1/freq, newest
-`capacity` kept; empty frames yield no chunk.  The file loaders (npz, HDF5,
-rosbag) are not ported yet.
+`capacity` kept; empty frames yield no chunk.
 """
 from __future__ import annotations
 
@@ -44,6 +54,104 @@ class SequenceData:
     images_left: Optional[Tuple[np.ndarray, np.ndarray]] = None
     images_right: Optional[Tuple[np.ndarray, np.ndarray]] = None
     ground_truth: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+
+def load_npz(path) -> SequenceData:
+    """The packed npz format that `save_npz` and the converters write."""
+    z = np.load(path, allow_pickle=False)
+
+    def ev(prefix):
+        return EventStream(z[f"{prefix}_t"], z[f"{prefix}_x"],
+                           z[f"{prefix}_y"], z[f"{prefix}_p"])
+
+    imu = ImuStream(z["imu_t"], z["imu_acc"], z["imu_gyr"])
+    gt = (z["gt_t"], z["gt_p"]) if "gt_t" in z else None
+    imgs_l = (z["img_left_t"], z["img_left"]) if "img_left_t" in z else None
+    imgs_r = (z["img_right_t"], z["img_right"]) if "img_right_t" in z else None
+    return SequenceData(ev("ev_left"), ev("ev_right"), imu, imgs_l, imgs_r, gt)
+
+
+def save_npz(seq: SequenceData, path):
+    """Write SequenceData in the packed npz format `load_npz` reads."""
+    arrs = {}
+    for prefix, ev in (("ev_left", seq.events_left),
+                       ("ev_right", seq.events_right)):
+        arrs[f"{prefix}_t"] = ev.t
+        arrs[f"{prefix}_x"] = ev.x
+        arrs[f"{prefix}_y"] = ev.y
+        arrs[f"{prefix}_p"] = ev.p
+    if seq.imu is not None:
+        arrs["imu_t"] = seq.imu.t
+        arrs["imu_acc"] = seq.imu.acc
+        arrs["imu_gyr"] = seq.imu.gyr
+    if seq.images_left is not None:
+        arrs["img_left_t"], arrs["img_left"] = seq.images_left
+    if seq.images_right is not None:
+        arrs["img_right_t"], arrs["img_right"] = seq.images_right
+    if seq.ground_truth is not None:
+        arrs["gt_t"], arrs["gt_p"] = seq.ground_truth
+    np.savez_compressed(path, **arrs)
+
+
+def load_dsec_h5(events_left_path, events_right_path, imu_path=None):
+    """DSEC-format HDF5 event files (events/{t, x, y, p}, t in µs, an
+    optional t_offset in µs)."""
+    import h5py
+
+    def ev(path):
+        with h5py.File(path, "r") as f:
+            g = f["events"]
+            t = np.asarray(g["t"], np.float64) * 1e-6
+            if "t_offset" in f:
+                t = t + float(np.asarray(f["t_offset"])) * 1e-6
+            return EventStream(t, np.asarray(g["x"], np.int32),
+                               np.asarray(g["y"], np.int32),
+                               np.asarray(g["p"], np.int32))
+
+    left = ev(events_left_path)
+    right = ev(events_right_path)
+    imu = None
+    if imu_path:
+        with h5py.File(imu_path, "r") as f:
+            imu = ImuStream(np.asarray(f["t"], np.float64),
+                            np.asarray(f["acc"]), np.asarray(f["gyr"]))
+    return SequenceData(left, right, imu)
+
+
+def load_mvsec_h5(data_path, gt_path=None) -> SequenceData:
+    """MVSEC-format HDF5: davis/{left,right}/events (N, 4: x, y, t,
+    p ∈ {-1, 1}), davis/left/imu (M, 6: ax ay az wx wy wz) + imu_ts,
+    image_raw (+ _ts); ground truth from the companion _gt.hdf5
+    (davis/left/pose (K, 4, 4) + pose_ts)."""
+    import h5py
+
+    with h5py.File(data_path, "r") as f:
+        def ev(side):
+            e = np.asarray(f[f"davis/{side}/events"])
+            return EventStream(e[:, 2].astype(np.float64),
+                               e[:, 0].astype(np.int32),
+                               e[:, 1].astype(np.int32),
+                               (e[:, 3] > 0).astype(np.int32))
+        left = ev("left")
+        right = ev("right") if "davis/right/events" in f else left
+        imu = None
+        if "davis/left/imu" in f:
+            m = np.asarray(f["davis/left/imu"])
+            ts = np.asarray(f["davis/left/imu_ts"])
+            imu = ImuStream(ts.astype(np.float64), m[:, 0:3], m[:, 3:6])
+        imgs_l = imgs_r = None
+        if "davis/left/image_raw" in f:
+            imgs_l = (np.asarray(f["davis/left/image_raw_ts"], np.float64),
+                      np.asarray(f["davis/left/image_raw"]))
+        if "davis/right/image_raw" in f:
+            imgs_r = (np.asarray(f["davis/right/image_raw_ts"], np.float64),
+                      np.asarray(f["davis/right/image_raw"]))
+    gt = None
+    if gt_path:
+        with h5py.File(gt_path, "r") as f:
+            T = np.asarray(f["davis/left/pose"])
+            gt = (np.asarray(f["davis/left/pose_ts"], np.float64), T[:, :3, 3])
+    return SequenceData(left, right, imu, imgs_l, imgs_r, gt)
 
 
 def iterate_chunks(stream: EventStream, freq: float, capacity: int, device,

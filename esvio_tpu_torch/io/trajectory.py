@@ -1,6 +1,6 @@
 """Trajectory writers and the absolute trajectory error (port of
-esvio_tpu/io/trajectory.py: the writers, `read_tum` and `ate_rmse` with the
-4-DoF yaw alignment; the SE(3)/Sim(3) alignments are not ported yet).
+esvio_tpu/io/trajectory.py: the writers, `read_tum` and `ate_rmse` with its
+four alignments, in numpy).
 
 The writers match the reference's files byte for byte:
   * VIO CSV — `esvio_result_no_loop.csv`: ns, P, Q(wxyz), V, trailing comma
@@ -42,6 +42,22 @@ def read_tum(path):
     return t, P, Q
 
 
+def _umeyama_alignment(est, gt, with_scale=False):
+    """SE(3) (+ scale) alignment est → gt (Umeyama); returns (s, R, t)."""
+    mu_e = est.mean(0)
+    mu_g = gt.mean(0)
+    E = est - mu_e
+    G = gt - mu_g
+    C = G.T @ E / len(est)
+    U, D, Vt = np.linalg.svd(C)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    s = (np.trace(np.diag(D) @ S) / (E * E).sum() * len(est)) if with_scale else 1.0
+    return s, R, mu_g - s * R @ mu_e
+
+
 def _yaw_alignment(est, gt):
     """4-DoF (yaw + translation) alignment est → gt."""
     mu_e = est.mean(0)
@@ -56,8 +72,10 @@ def _yaw_alignment(est, gt):
     return 1.0, R, mu_g - R @ mu_e
 
 
-def ate_rmse(est_t, est_P, gt_t, gt_P, alignment="yaw", max_dt=0.02):
-    """ATE RMSE after temporal association + alignment ("none" | "yaw")."""
+def ate_rmse(est_t, est_P, gt_t, gt_P, alignment="se3", max_dt=0.02):
+    """Absolute trajectory error RMSE after temporal association +
+    alignment: "none" | "yaw" (4-DoF, the fair metric for VIO) | "se3" |
+    "sim3"."""
     est_t = np.asarray(est_t)
     gt_t = np.asarray(gt_t)
     gt_P = np.asarray(gt_P)
@@ -72,7 +90,11 @@ def ate_rmse(est_t, est_P, gt_t, gt_P, alignment="yaw", max_dt=0.02):
         s, R, t = 1.0, np.eye(3), np.zeros(3)
     elif alignment == "yaw":
         s, R, t = _yaw_alignment(est, gt)
+    elif alignment == "se3":
+        s, R, t = _umeyama_alignment(est, gt, with_scale=False)
+    elif alignment == "sim3":
+        s, R, t = _umeyama_alignment(est, gt, with_scale=True)
     else:
-        raise ValueError(f"alignment {alignment!r} is not ported")
+        raise ValueError(alignment)
     err = gt - (s * est @ R.T + t)
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))

@@ -4,6 +4,7 @@ when only the event tracker's RANSAC key changes.
     JAX_PLATFORMS=cpu python tests/jax_golden_spread.py esvio default 1 2 3
     JAX_PLATFORMS=cpu python tests/jax_golden_spread.py loops 0 1 1:2
     JAX_PLATFORMS=cpu python tests/jax_golden_spread.py loops gauge
+    JAX_PLATFORMS=cpu python tests/jax_golden_spread.py cli 30
 
 runs the golden pipeline of tests/test_golden_trace.py (mode "esio" or
 "esvio", the JAX package's default fused path, the test suite's JAX
@@ -24,6 +25,15 @@ holds the port to what these runs meet.
 motion correction for the first 16 ticks and prints, per tick, how far
 apart their outputs P and V are, and how far apart the inputs of their
 motion correction (mean gyro, velocity feedback) are.
+
+Mode "cli" runs the JAX package's run CLI (esvio_tpu.apps.run.main, whose
+tracker and estimator take their default sizes) once per LK iteration
+count given, with the tracker's default `lk_iters` set to it, on two
+inputs: the golden written as YAML + npz (as chip_smoke's phase 20 and
+tests/test_torch_run_cli.py write it) and tests/test_run_cli.py's
+end-to-end sequence and YAML.  One line each: NON_LINEAR frames, the first
+stamp, ATE.  Give one count per process: XLA:CPU on an 8-core box with
+vm.max_map_count 65530 ran out of memory maps compiling a second count.
 """
 import os
 import sys
@@ -201,11 +211,76 @@ def main_loops(argv):
               flush=True)
 
 
+def main_cli(argv):
+    import contextlib
+    import dataclasses
+    import io
+    import json
+    import tempfile
+    import numpy as np
+    import test_run_cli as trc
+    from esvio_tpu.apps import run as jrun
+    from esvio_tpu.frontend import tracker as trk
+    from esvio_tpu.io import datasets as ds
+    from synth import planar_vio_sequence_rot
+    from synth_np import GOLDEN, vio_pipeline
+
+    def golden(d):
+        _, seq, gt_t, gt_P = vio_pipeline("cpu", **GOLDEN, config_dir=d)
+        seq.ground_truth = (gt_t, gt_P)
+        return seq
+
+    def end_to_end(d):
+        seq, gt_t, gt_P = planar_vio_sequence_rot(
+            np.random.default_rng(0), H=trc.H, W=trc.W, focal=trc.FOCAL,
+            plane_z=4.0, baseline=trc.BASELINE, duration=2.0)
+        seq.ground_truth = (gt_t, gt_P)
+        trc._write_config_yaml(os.path.join(d, "esvio.yaml"),
+                               os.path.join(d, "out"))
+        for cam in ("event0", "event1"):
+            trc._write_camera_yaml(os.path.join(d, f"{cam}.yaml"), trc.FOCAL,
+                                   trc.FOCAL, trc.W / 2, trc.H / 2, trc.W,
+                                   trc.H)
+        return seq
+
+    real = trk.TrackerConfig
+    for lk in argv:
+        trk.TrackerConfig = lambda *a, lk_=int(lk), **k: dataclasses.replace(
+            real(*a, **k), lk_iters=k.get("lk_iters", lk_))
+        try:
+            for name, make in (("golden", golden),
+                               ("test_run_cli end to end", end_to_end)):
+                with tempfile.TemporaryDirectory() as d:
+                    seq = make(d)
+                    ds.save_npz(seq, os.path.join(d, "seq.npz"))
+                    buf = io.StringIO()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(buf):
+                        jrun.main(["--config", os.path.join(d, "esvio.yaml"),
+                                   "--seq", os.path.join(d, "seq.npz"),
+                                   "--out", os.path.join(d, "out"),
+                                   "--event-capacity", str(1 << 15)])
+                    s = json.loads(buf.getvalue().strip().splitlines()[-1])
+                    tum = np.loadtxt(os.path.join(
+                        d, "out", "esvio_result_no_loop.tum"), ndmin=2)
+                    first = f"{tum[0, 0]:.4f}" if len(tum) else "none"
+                    print(f"cli lk_iters {lk} {name}: {s['frames']} NON_LINEAR "
+                          f"frames of {s['stage_ms']['frontend_event']['n']} "
+                          f"ticks, first stamp {first}, ATE "
+                          f"{s.get('ate_rmse_m', float('nan')):.4f} m, restarts "
+                          f"{s['restarts']}; {time.perf_counter() - t0:.0f} s",
+                          flush=True)
+        finally:
+            trk.TrackerConfig = real
+
+
 def main(argv):
     import conftest  # noqa: F401  (the suite's JAX settings: CPU, x64, cache)
     import jax
     if argv[0] == "loops":
         return main_loops(argv[1:])
+    if argv[0] == "cli":
+        return main_cli(argv[1:])
     from esvio_tpu.frontend import tracker as trk
     from synth_np import golden_gates
     from test_golden_trace import GOLDEN, GOLDEN_ESVIO, run_golden_pipeline

@@ -660,15 +660,20 @@ EX_CALIB_Q_BC = np.array([0.98, 0.05, -0.10, 0.08]) / np.linalg.norm(
 
 
 def estimator_drive(kind, n_frames=None):
-    """(traj, ex_p, ex_q, packets, cfg_kw) of the mono ("mono") or the
-    online extrinsic-rotation ("ex_rotation") drive: the packets of every
-    frame, made in the order the tests draw them, and the EstimatorConfig
-    keywords of the test."""
-    seed, n = (7, 26) if kind == "mono" else (11, 30)
+    """(traj, ex_p, ex_q, packets, cfg_kw) of the mono ("mono"), the online
+    extrinsic-rotation ("ex_rotation") or the checkpoint ("checkpoint":
+    tests/test_checkpoint.py's, seed 0, 22 frames, its packets drawn from
+    a second generator seeded 99) drive: the packets of every frame, made
+    in the order the tests draw them, and the EstimatorConfig keywords of
+    the test."""
+    seed, n = {"mono": (7, 26), "ex_rotation": (11, 30),
+               "checkpoint": (0, 22)}[kind]
     rng = np.random.default_rng(seed)
     traj = simulate_trajectory(rng, n_frames=n, imu_per_frame=10,
                                frame_dt=0.05)
     lms = make_world(rng, traj)
+    if kind == "checkpoint":
+        rng = np.random.default_rng(99)
     B = EST_BASELINE
     ex_p = np.array([[0, 0, 0], [0, 0, 0], [B, 0, 0], [B, 0, 0]], float)
     ex_q = np.tile(np.array([1.0, 0, 0, 0]), (4, 1))
@@ -852,4 +857,115 @@ def write_camera_yaml(directory, kind, width, height):
     with open(path, "w") as f:
         f.write(camera_yaml_text(kind, width, height,
                                  **camera_model_params(kind, width, height)))
+    return path
+
+
+# ---------------------------------------------------------------------------
+# rosbag 2.0 files (the record layout of tests/test_rosbag.py's writer, with
+# the event messages packed by numpy), for jax-free drives of the rosbag
+# reader and the CLI's --convert
+
+BAG_TOPICS = dict(event_left="/davis_left/events",
+                  event_right="/davis_right/events", imu="/davis_left/imu")
+
+
+def _bag_fields(fields):
+    import struct
+    out = b""
+    for k, v in fields.items():
+        f = k.encode() + b"=" + v
+        out += struct.pack("<I", len(f)) + f
+    return out
+
+
+def _bag_record(fields, payload):
+    import struct
+    h = _bag_fields(fields)
+    return struct.pack("<I", len(h)) + h + struct.pack("<I", len(payload)) \
+        + payload
+
+
+def _ros_time(stamp):
+    """(secs, nsecs) of a stamp in seconds, nsecs rounded and carried."""
+    secs = np.floor(np.asarray(stamp, np.float64))
+    nsecs = np.round((stamp - secs) * 1e9)
+    carry = nsecs >= 1e9
+    return (secs + carry).astype(np.uint32), np.where(carry, 0, nsecs).astype(
+        np.uint32)
+
+
+def _ros_header(stamp):
+    import struct
+    s, ns = _ros_time(stamp)
+    return struct.pack("<III", 0, int(s), int(ns)) + struct.pack("<I", 3) + b"cam"
+
+
+def _bag_message(conn, stamp, payload):
+    import struct
+    s, ns = _ros_time(stamp)
+    return _bag_record({"op": b"\x02", "conn": struct.pack("<I", conn),
+                        "time": struct.pack("<II", int(s), int(ns))}, payload)
+
+
+def _event_array(t, x, y, p, height, width):
+    """dvs_msgs/EventArray: header, height, width, then the events packed
+    13 bytes each (uint16 x, uint16 y, uint32 secs, uint32 nsecs, uint8 p)."""
+    import struct
+    ev = np.zeros(len(t), np.dtype([("x", "<u2"), ("y", "<u2"), ("s", "<u4"),
+                                    ("ns", "<u4"), ("p", "u1")]))
+    ev["x"], ev["y"], ev["p"] = x, y, p
+    ev["s"], ev["ns"] = _ros_time(t)
+    return (_ros_header(t[0]) + struct.pack("<III", height, width, len(t))
+            + ev.tobytes())
+
+
+def _imu_msg(stamp, acc, gyr):
+    import struct
+    return (_ros_header(stamp) + struct.pack("<4d", 0, 0, 0, 1)
+            + struct.pack("<9d", *([0.0] * 9)) + struct.pack("<3d", *gyr)
+            + struct.pack("<9d", *([0.0] * 9)) + struct.pack("<3d", *acc)
+            + struct.pack("<9d", *([0.0] * 9)))
+
+
+def write_rosbag(path, seq, height, width, compression="bz2", msg_dt=0.01,
+                 chunk_msgs=200):
+    """A rosbag 2.0 file of `seq`'s events (one EventArray per camera per
+    msg_dt s, on BAG_TOPICS) and IMU samples, in chunks of chunk_msgs
+    messages compressed with `compression` ("bz2" or "none")."""
+    import bz2
+    import struct
+    topics = [("event_left", "dvs_msgs/EventArray"),
+              ("event_right", "dvs_msgs/EventArray"),
+              ("imu", "sensor_msgs/Imu")]
+    conns = [_bag_record(
+        {"op": b"\x07", "conn": struct.pack("<I", c),
+         "topic": BAG_TOPICS[name].encode()},
+        _bag_fields({"topic": BAG_TOPICS[name].encode(), "type": dtype.encode(),
+                     "md5sum": b"0" * 32, "message_definition": b""}))
+        for c, (name, dtype) in enumerate(topics)]
+    msgs = []
+    for c, ev in enumerate((seq.events_left, seq.events_right)):
+        edges = np.searchsorted(ev.t, np.arange(ev.t[0], ev.t[-1] + msg_dt,
+                                                msg_dt), side="right")
+        for lo, hi in zip(np.concatenate([[0], edges]), np.append(edges, len(ev.t))):
+            if hi > lo:
+                msgs.append((ev.t[lo], _bag_message(c, ev.t[lo], _event_array(
+                    ev.t[lo:hi], ev.x[lo:hi], ev.y[lo:hi], ev.p[lo:hi],
+                    height, width))))
+    for k, ti in enumerate(seq.imu.t):
+        msgs.append((ti, _bag_message(2, ti, _imu_msg(ti, seq.imu.acc[k],
+                                                      seq.imu.gyr[k]))))
+    msgs.sort(key=lambda m: m[0])
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n")
+        f.write(_bag_record({"op": b"\x03", "index_pos": struct.pack("<Q", 0),
+                             "conn_count": struct.pack("<I", len(conns)),
+                             "chunk_count": struct.pack("<I", 1)}, b" " * 1024))
+        for i in range(0, max(len(msgs), 1), chunk_msgs):
+            raw = b"".join(conns if i == 0 else []) + b"".join(
+                m for _, m in msgs[i:i + chunk_msgs])
+            body = bz2.compress(raw) if compression == "bz2" else raw
+            f.write(_bag_record({"op": b"\x05",
+                                 "compression": compression.encode(),
+                                 "size": struct.pack("<I", len(raw))}, body))
     return path

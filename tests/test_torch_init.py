@@ -1,18 +1,14 @@
 """Parity: the port's monocular initialization fallback (`init/sfm`,
-`alignment.linear_alignment`, `Estimator._try_initialize_mono`) and online
-camera-IMU rotation calibration (`init/ex_rotation`,
-`relative_pose.solve_relative_rotation`, `Estimator._ex_rotation_step`)
-against the JAX package, float32 inputs built on both sides.
+`alignment.linear_alignment`) and online camera-IMU rotation calibration
+(`init/ex_rotation`, `relative_pose.solve_relative_rotation`) against the
+JAX package, function by function, float32 inputs built on both sides.
+The estimator drives that run them are in test_torch_init_drives.py and
+test_torch_init_ex_rotation.py.
 
 Decisions exact: ok flags, the essential matrix's twin choice,
-`find_frame_l`'s l, the calibration's acceptance tick and init True/False.
-Floats: R and t within 1e-4; linear_alignment's g, v, s within rtol 1e-4;
-construct's poses within 1e-3; the calibrated q within 1e-4 up to sign; the
-window after the mono init (P, V, Q) within 2e-3, the tolerance the JAX
-package allows between its own two paths (tests/test_fused_tick.py:66-67).
-The drives are tests/test_estimator.py's mono and extrinsic ones
-(tests/synth_np.estimator_drive); the port's whole drives are held to that
-test's own gates.
+`find_frame_l`'s l.  Floats: R and t within 1e-4; linear_alignment's g, v,
+s within rtol 1e-4; construct's poses within 1e-3; the calibrated q within
+1e-4 up to sign.
 """
 import numpy as np
 import pytest
@@ -21,7 +17,7 @@ import jax.numpy as jnp
 import torch
 
 import synth_np
-from torch_parity import estimator_to_torch, np_f32, rel_err
+from torch_parity import np_f32, rel_err
 from synth import simulate_trajectory
 from esvio_tpu.core import lie as jlie
 from esvio_tpu.imu import preintegration as jpre
@@ -29,14 +25,12 @@ from esvio_tpu.init import alignment as jal
 from esvio_tpu.init import ex_rotation as jex
 from esvio_tpu.init import relative_pose as jrp
 from esvio_tpu.init import sfm as jsfm
-from esvio_tpu.vio import estimator as jest
 from esvio_tpu_torch.core import lie as tlie
 from esvio_tpu_torch.core import prng
 from esvio_tpu_torch.init import alignment as tal
 from esvio_tpu_torch.init import ex_rotation as tex
 from esvio_tpu_torch.init import relative_pose as trp
 from esvio_tpu_torch.init import sfm as tsfm
-from esvio_tpu_torch.vio import estimator as test_
 
 
 def _two_view(rng, n=60, t21=(0.4, 0.1, -0.05), noise=2e-4):
@@ -225,181 +219,6 @@ def test_quat_left_right_match():
     np.testing.assert_allclose(tlie.quat_right(torch.tensor(q)).numpy(),
                                np.asarray(jlie.quat_right(jnp.asarray(q))),
                                atol=1e-7)
-
-
-# ------------------------------------------------------------ estimator
-
-
-def _jax_estimator(ex_p, ex_q, cfg_kw):
-    return jest.Estimator(jest.EstimatorConfig(fused=False, **cfg_kw), ex_p,
-                          ex_q)
-
-
-def test_mono_init_from_jax_state():
-    """The mono drive (stereo off) on the JAX estimator up to its init tick;
-    there the stereo bootstrap fails on both sides, and the port, copied
-    from the JAX estimator at that moment, initializes through its mono
-    fallback as the JAX one does: the same decisions and the same window."""
-    traj, ex_p, ex_q, packets, cfg_kw = synth_np.estimator_drive("mono", 11)
-    je = _jax_estimator(ex_p, ex_q, cfg_kw)
-    seen = {}
-    real_stereo, real_mono = je._try_initialize, je._try_initialize_mono
-
-    def stereo():
-        te = estimator_to_torch(je)
-        seen["stereo"] = (real_stereo(), te._try_initialize())
-        seen["te"] = te
-        return seen["stereo"][0]
-
-    def mono():
-        te = seen["te"]
-        book, _ = te._loop_book()
-        obs = book.un.numpy()
-        mask = book.obs.numpy() & book.active.numpy()[:, None]
-        seed = int(je.timestamps[0] * 1e3) & 0x7FFFFFFF
-        seen["l"] = (jsfm.find_frame_l(jax.random.PRNGKey(seed), obs, mask)[0],
-                     tsfm.find_frame_l(prng.PRNGKey(seed), obs, mask)[0])
-        seen["mono"] = (real_mono(), te._try_initialize_mono())
-        return seen["mono"][0]
-
-    je._try_initialize, je._try_initialize_mono = stereo, mono
-    je._triangulate = lambda: (_ for _ in ()).throw(StopIteration)
-    for f, pkt in enumerate(packets):
-        if f > 0:
-            synth_np.feed_imu(je, traj, f)
-        try:
-            je.process_packets(traj["t"][f], pkt)
-        except StopIteration:          # initialized: stop before its solve
-            break
-    assert f == test_.WINDOW and je.solver_flag == "NON_LINEAR"
-    assert seen["stereo"] == (False, False)
-    assert seen["l"][0] is not None and seen["l"][0] == seen["l"][1]
-    assert seen["mono"] == (True, True)
-    te = seen["te"]
-    for name, tol in (("P", 2e-3), ("V", 2e-3), ("Q", 2e-3), ("Bg", 1e-4),
-                      ("Ba", 0.0)):
-        np.testing.assert_allclose(getattr(te.ws, name).numpy(),
-                                   np.asarray(getattr(je.ws, name)), atol=tol,
-                                   err_msg=name)
-
-
-@pytest.mark.parametrize("require_stable", [False, True])
-def test_ex_rotation_drive_matches_jax(require_stable):
-    """The extrinsic drive (identity guess ~16° off) on both estimators in
-    lock step up to the init tick: the same calibration pairs, the same
-    acceptance tick, the same calibrated rotation, and both initialize on
-    that tick (stopped there, before the window solve).  With
-    ex_calib_require_stable the scale-invariant gate waits for 3
-    consecutive solves within 1°: the same stability counts and candidates
-    on every tick."""
-    traj, ex_p, ex_q, packets, cfg_kw = synth_np.estimator_drive("ex_rotation")
-    cfg_kw["ex_calib_require_stable"] = require_stable
-    je = _jax_estimator(ex_p, ex_q, cfg_kw)
-    te = test_.Estimator(test_.EstimatorConfig(fused=False, **cfg_kw), ex_p,
-                         ex_q, "cpu")
-    stop = lambda: (_ for _ in ()).throw(StopIteration)
-    je._triangulate = te._triangulate = stop
-    done = {"j": None, "t": None}
-    stable_seen = []
-    for f, pkt in enumerate(packets):
-        flags = {}
-        for k, e in (("j", je), ("t", te)):
-            if f > 0:
-                synth_np.feed_imu(e, traj, f)
-            try:
-                e.process_packets(traj["t"][f], pkt)
-            except StopIteration:
-                pass
-            flags[k] = e.solver_flag
-            if e._ex_calib_done and done[k] is None:
-                done[k] = f
-        assert len(je._calib_pairs) == len(te._calib_pairs), f
-        for (jc, ji), (tc, ti) in zip(je._calib_pairs, te._calib_pairs):
-            # one 50 ms interval's essential-matrix rotation, in float32
-            s = np.sign(float(np.dot(jc, tc)))
-            np.testing.assert_allclose(s * tc, jc, atol=1e-3)
-            np.testing.assert_allclose(ti, ji, atol=1e-5)
-        assert flags["j"] == flags["t"], f
-        assert je._ex_calib_stable == te._ex_calib_stable, f
-        assert (je._ex_calib_last_q is None) == (te._ex_calib_last_q is None)
-        if je._ex_calib_last_q is not None:
-            stable_seen.append(je._ex_calib_stable)
-            jl, tl = je._ex_calib_last_q, te._ex_calib_last_q
-            np.testing.assert_allclose(np.sign(float(jl @ tl)) * tl, jl,
-                                       atol=1e-3)
-        if flags["j"] == "NON_LINEAR" or (require_stable
-                                          and done["j"] is not None):
-            break
-    # the acceptance tick; without the stability window both initialize on
-    # it (with it, the drive stops there)
-    assert done["j"] is not None and done["j"] == done["t"] == f
-    # the stability window ran (and only with the option on)
-    assert bool(stable_seen) == require_stable, stable_seen
-    # the drive's calibrated rotations: their pairs differ by the float32
-    # essential matrices above, so within 1e-3; the hand-eye solve itself
-    # on the JAX side's pairs within 1e-4
-    jq, tq = np.asarray(je.ws.ex_q[1]), te.ws.ex_q[1].numpy()
-    np.testing.assert_allclose(np.sign(float(jq @ tq)) * tq, jq, atol=1e-3)
-    qc, qi = (np_f32(np.stack([p[i] for p in je._calib_pairs]))
-              for i in (0, 1))
-    args = (qc, qi, np_f32([1, 0, 0, 0]))
-    jq2 = jex.calibrate_ex_rotation(*(jnp.asarray(a) for a in args))[0]
-    tq2 = tex.calibrate_ex_rotation(*(torch.tensor(a) for a in args))[0]
-    np.testing.assert_allclose(tq2.numpy(), np.asarray(jq2), atol=1e-4)
-    if not require_stable:   # else the Huber weights came from a candidate
-        np.testing.assert_allclose(np.asarray(jq2), jq, atol=1e-6)
-
-
-def _angle_deg(q, q_ref):
-    from esvio_tpu_torch.core import lie_np
-    d = lie_np.quat_mul(np.array([q[0], -q[1], -q[2], -q[3]]), q_ref)
-    return 2 * np.degrees(np.arctan2(np.linalg.norm(d[1:]), abs(d[0])))
-
-
-def test_port_mono_drive():
-    """tests/test_estimator.py::test_mono_init_fallback on the port's fused
-    default: NON_LINEAR through the mono fallback, the last frame within the
-    test's 0.4 m."""
-    traj, ex_p, ex_q, packets, cfg_kw = synth_np.estimator_drive("mono")
-    est = test_.Estimator(test_.EstimatorConfig(**cfg_kw), ex_p, ex_q, "cpu")
-    calls = []
-    real = est._try_initialize_mono
-    est._try_initialize_mono = lambda: calls.append(real()) or calls[-1]
-    outs = []
-    for f, pkt in enumerate(packets):
-        if f > 0:
-            synth_np.feed_imu(est, traj, f)
-        outs.append(est.process_packets(traj["t"][f], pkt))
-    assert True in calls and outs[-1].solver_flag == "NON_LINEAR"
-    assert np.linalg.norm(outs[-1].P - traj["P"][-1]) < 0.4
-
-
-def test_port_ex_rotation_drive():
-    """tests/test_estimator.py::test_online_ex_rotation_calibration on the
-    port's fused default: calibrated within 6° of the truth, NON_LINEAR only
-    after the calibration, and the steady ticks on the fused path read the
-    calibrated extrinsic."""
-    traj, ex_p, ex_q, packets, cfg_kw = synth_np.estimator_drive("ex_rotation")
-    est = test_.Estimator(test_.EstimatorConfig(**cfg_kw), ex_p, ex_q, "cpu")
-    assert not est._ex_calib_done
-    fused = []
-    real = est._process_packets_fused
-    est._process_packets_fused = lambda *a: fused.append(
-        est.ws.ex_q[1].numpy().copy()) or real(*a)
-    done_at, first_nl = None, None
-    for f, pkt in enumerate(packets):
-        if f > 0:
-            synth_np.feed_imu(est, traj, f)
-        out = est.process_packets(traj["t"][f], pkt)
-        if est._ex_calib_done and done_at is None:
-            done_at = f
-            q_acc = est.ws.ex_q[1].numpy().copy()
-        if out.solver_flag == "NON_LINEAR" and first_nl is None:
-            first_nl = f
-    assert done_at is not None and first_nl is not None and first_nl >= done_at
-    assert _angle_deg(est.ws.ex_q[1].numpy().astype(float),
-                      synth_np.EX_CALIB_Q_BC) < 6.0
-    assert fused and _angle_deg(fused[0].astype(float), q_acc.astype(float)) < 1.0
 
 
 def test_synth_np_matches_the_estimator_drives():

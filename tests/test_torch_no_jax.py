@@ -7,7 +7,9 @@ back), a loop closer registers a keyframe and survives save/load, the CG pose-gr
 from reference-style YAML files (io.config.load_config) runs two ticks,
 the mono drive of tests/test_estimator.py initializes through the
 monocular fallback, every camera kind loads from its YAML file and lifts
-a pixel, and chip_smoke and chip_ab import (without running).  Nothing of jax or esvio_tpu may be
+a pixel, the run CLI runs three ticks from an npz, a rosbag converts, the
+mono drive's estimator is checkpointed and loaded back, greedy spacing
+runs once, and chip_smoke and chip_ab import (without running).  Nothing of jax or esvio_tpu may be
 loaded along the way.  tests/synth_np.py, which these drives use, is held
 bit for bit against tests/synth.py on the loop sequence's smooth texture
 with IMU biases and noise."""
@@ -92,6 +94,41 @@ SCRIPT = textwrap.dedent("""
         ray = camera.lift_projective(cam, torch.tensor([[100.0, 80.0]]))
         px = camera.space_to_plane(cam, ray)
         assert torch.isfinite(ray).all() and torch.isfinite(px).all(), kind
+    # the run CLI on an npz (3 ticks), a rosbag conversion, an estimator
+    # checkpoint saved and loaded, one greedy spacing call
+    import contextlib, io, json
+    from synth_np import write_rosbag
+    from esvio_tpu_torch.apps import run as run_cli
+    from esvio_tpu_torch.io import datasets as ds
+    make_pipeline, seq, gt_t, gt_P = vio_pipeline("cpu", H=120, W=160,
+                                                  focal=200.0, duration=0.3,
+                                                  config_dir=tmp)
+    seq.ground_truth = (gt_t, gt_P)
+    ds.save_npz(seq, os.path.join(tmp, "seq.npz"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run_cli.main(["--config", os.path.join(tmp, "esvio.yaml"),
+                           "--seq", os.path.join(tmp, "seq.npz"),
+                           "--out", os.path.join(tmp, "cli"),
+                           "--max-frames", "3", "--device", "cpu"])
+    assert rc == 0 and json.loads(out.getvalue().splitlines()[-1])["restarts"] == 0
+    assert os.path.exists(os.path.join(tmp, "cli", "esvio_result_no_loop.tum"))
+    from esvio_tpu_torch.io import rosbag
+    bag = write_rosbag(os.path.join(tmp, "seq.bag"), seq, 120, 160)
+    conv = rosbag.convert_rosbag(bag, event_left="/davis_left/events",
+                                 imu="/davis_left/imu")
+    assert np.array_equal(conv.events_left.x, seq.events_left.x)
+    from esvio_tpu_torch.vio import checkpoint
+    checkpoint.save_estimator(est, os.path.join(tmp, "est.npz"))
+    est2 = checkpoint.load_estimator(
+        est_mod.Estimator(est_mod.EstimatorConfig(**kw), ex_p, ex_q, "cpu"),
+        os.path.join(tmp, "est.npz"))
+    assert est2.solver_flag == "NON_LINEAR" and torch.equal(est2.ws.P, est.ws.P)
+    from esvio_tpu_torch.frontend import mask
+    keep, occ = mask.greedy_spacing(torch.arange(5.0), torch.tensor(
+        [10.0, 12, 40, 70, 71]), torch.full((5,), 20.0),
+        torch.ones(5, dtype=torch.bool), 40, 80, min_dist=5, max_keep=10)
+    assert keep.tolist() == [False, True, True, False, True], keep
     import chip_smoke, chip_ab
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and m.split(".")[0] in ("jax", "jaxlib", "esvio_tpu")]

@@ -15,21 +15,9 @@ Gates and tolerances:
     (5.7e-2 m).  All 14 stay inside the golden test's own gates
     (tests/test_golden_trace.py:78-86): the stamps within 1e-6 s, max
     deviation < 0.05 m, ATE <= 1.5 x golden + 0.01 m;
-  * the port's full run with its own front end, on its default fused
-    path: the golden's stamps and ATE gate, and max deviation < 0.05 m
-    once the four degrees of freedom VIO cannot observe (yaw and
-    translation) are aligned onto the golden.
-    Unaligned, it misses the golden's 0.05 m (0.289 m): its front end
-    flips single features on float32 ulps (test_torch_frontend.py), the
-    stereo initialization then fixes another gauge (7.5 deg of yaw), and
-    every later pose carries it.  The JAX package shows the same when only
-    its RANSAC seed changes (0.05-0.18 m unaligned, 0.02-0.05 m aligned;
-    PERF.md);
-  * the JAX back end on the port tracker's packets lands where the port
-    does (the same gauge within 1 deg, the same unaligned distance from
-    the golden within 0.05 m, positions through NON_LINEAR and
-    STEADY_TICKS within BACKEND_TOL_M): the packets, not the back end,
-    set that distance.
+
+The port's own full run and the JAX back end on its packets are in
+test_torch_pipeline_port.py.
 """
 import dataclasses
 import os
@@ -109,37 +97,6 @@ def port_on_jax_packets(jax_golden):
     return res, gt_t, gt_P
 
 
-@pytest.fixture(scope="module")
-def port_golden():
-    """The port's full golden run on its default, fused path: (result, gt_t,
-    gt_P, the tracker packet of each tick)."""
-    import esvio_tpu_torch.apps.pipeline as tpipe
-    track = tpipe.trk.track_event_stereo
-    packets = []
-
-    def recording(*a, **k):
-        state, pkt = track(*a, **k)
-        packets.append(pkt)
-        return state, pkt
-
-    make_pipeline, seq, gt_t, gt_P = vio_pipeline("cpu", **GOLDEN)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tpipe.trk, "track_event_stereo", recording)
-        res = make_pipeline().run(seq)
-    return res, gt_t, gt_P, packets
-
-
-def test_port_pipeline_meets_golden_gates(port_golden):
-    res, gt_t, gt_P, _ = port_golden
-    g = golden_gates(res, gt_t, gt_P, GOLDEN_NPZ)
-    print("port full run vs golden:", g)
-    assert g["stamps_ok"], g
-    assert g["ate_ok"], g
-    assert g["max_dev_4dof"] < MAX_DEV_M, g
-    assert res.metrics["ticks"] == 24 and res.n_restarts == 0
-    assert np.isfinite(np.asarray(res.P)).all()
-
-
 def test_port_backend_on_jax_packets_meets_golden_gates(port_on_jax_packets):
     res, gt_t, gt_P = port_on_jax_packets
     g = golden_gates(res, gt_t, gt_P, GOLDEN_NPZ)
@@ -163,36 +120,3 @@ def test_pipeline_tick_by_tick_against_jax(jax_golden, port_on_jax_packets):
     dev = np.linalg.norm(np.asarray(tres.P) - np.asarray(jres.P), axis=1)
     print("per-tick |P_port - P_jax| (m):", np.array2string(dev, precision=6))
     assert dev[:1 + STEADY_TICKS].max() < BACKEND_TOL_M, dev
-
-
-def test_jax_backend_on_port_packets_lands_where_the_port_does(port_golden):
-    """The JAX pipeline's general path on the port tracker's packets follows
-    the port's own run, gauge included: the distance of the port's full run
-    from the golden comes from its packets, not from its back end."""
-    import esvio_tpu.apps.pipeline as jpipe
-    from test_golden_trace import run_golden_pipeline
-    from torch_parity import to_jax
-    tres, gt_t, gt_P, tpackets = port_golden
-    packets = iter([to_jax(p, jpipe.trk.FeaturePacket) for p in tpackets])
-
-    class Pipeline(jpipe.Pipeline):
-        def __init__(self, *a, est_cfg=None, **k):
-            super().__init__(*a, est_cfg=dataclasses.replace(
-                est_cfg, fused=False), **k)
-
-    with pytest.MonkeyPatch.context() as mp, jax_marginalization_f64():
-        mp.setattr(jpipe, "Pipeline", Pipeline)
-        mp.setattr(jpipe.trk, "track_event_stereo",
-                   lambda cfg, cam_l, cam_r, state, ch_l, ch_r, t:
-                   (state, next(packets)))
-        jres, _, _ = run_golden_pipeline("esio")
-    np.testing.assert_allclose(jres.stamps, tres.stamps, rtol=0, atol=1e-9)
-    dev = np.linalg.norm(np.asarray(jres.P) - np.asarray(tres.P), axis=1)
-    print("per-tick |P_jax - P_port| on the port's packets (m):",
-          np.array2string(dev, precision=6))
-    assert dev[:1 + STEADY_TICKS].max() < BACKEND_TOL_M, dev
-    gj = golden_gates(jres, gt_t, gt_P, GOLDEN_NPZ)
-    gt = golden_gates(tres, gt_t, gt_P, GOLDEN_NPZ)
-    print("JAX back end on the port's packets vs golden:", gj)
-    assert abs(gj["max_dev"] - gt["max_dev"]) < MAX_DEV_M, (gj, gt)
-    assert abs(gj["yaw_deg"] - gt["yaw_deg"]) < 1.0, (gj, gt)

@@ -191,6 +191,14 @@ def estimator_to_torch(je, device="cpu"):
     return te
 
 
+def jax_general_estimator(ex_p, ex_q, cfg_kw):
+    """A JAX Estimator on its general path (fused=False) with the
+    EstimatorConfig keywords cfg_kw."""
+    from esvio_tpu.vio import estimator as jest
+    return jest.Estimator(jest.EstimatorConfig(fused=False, **cfg_kw), ex_p,
+                          ex_q)
+
+
 @contextlib.contextmanager
 def jax_marginalization_f64():
     """The JAX package's marginalization with its two eigendecompositions
