@@ -1,4 +1,5 @@
-"""Build, load and launch the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels, and build
+its host library (the event packetizer, native/packetizer.cc).
 
 Each source in csrc/ has a plain C interface.  At first use it is compiled
 by nvcc for Hopper into its own shared library under esvio_tpu_torch/build/
@@ -6,6 +7,12 @@ by nvcc for Hopper into its own shared library under esvio_tpu_torch/build/
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v \
          -shared -Xcompiler -fPIC -o build/libchol_solve.so csrc/chol_solve.cu
+
+The host library is built the same way by the host compiler (g++, which
+nvcc needs anyway), beside the kernels when `build` builds everything:
+
+    g++ -O3 -std=c++17 -ffp-contract=off -shared -fPIC \
+        -o build/libpacketizer.so native/packetizer.cc
 
 Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises if that is not 0.  SIGNATURES is the
@@ -28,6 +35,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# no FMA contraction: the packetizer's IMU interpolation matches numpy's
+CXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 # parameter kinds of each extern "C" entry point: "ptr" (device pointer or
 # stream) or "int"; all return an int cudaError_t
@@ -42,6 +51,8 @@ class Kernel:
     """A kernel of the port: its C symbol, its source, its library and its
     launch count."""
 
+    compiler = "nvcc"
+
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
         self.name = name
         self.symbol = symbol
@@ -52,7 +63,7 @@ class Kernel:
 
     @property
     def src_path(self) -> str:
-        return os.path.join(CSRC, os.path.basename(self.source))
+        return os.path.join(os.path.dirname(_PKG), self.source)
 
     @property
     def lib_path(self) -> str:
@@ -76,6 +87,24 @@ CHOL_SOLVE = Kernel(
 KERNELS = (CORNER_MASK, CHOL_SOLVE)
 
 
+class HostLib(Kernel):
+    """A host library of the port: built by the host compiler, launches no
+    kernel."""
+
+    compiler = "host"
+
+    def fn(self):
+        if self._fn is None:
+            build(libs=(self,))
+            self._fn = ctypes.CDLL(self.lib_path)
+        return self._fn
+
+
+PACKETIZER = HostLib("packetizer", None, "esvio_tpu_torch/native/packetizer.cc",
+                     "esvio_tpu/native/packetizer.cc")
+HOST_LIBS = (PACKETIZER,)
+
+
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
@@ -97,30 +126,46 @@ def _nvcc() -> str:
     return path
 
 
-def build(force: bool = False) -> tuple[float, str]:
-    """Compile every kernel whose library is missing or older than its
-    source (every kernel when `force`), one nvcc per source, all started
-    together.  Returns the wall seconds and nvcc's output (the ptxas lines:
+def _cxx() -> str:
+    path = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+    if not path:
+        raise RuntimeError("no host C++ compiler (g++): the packetizer "
+                           "cannot be built")
+    return path
+
+
+def _command(k, out: str):
+    if k.compiler == "host":
+        return [_cxx(), *CXX_FLAGS, "-o", out, k.src_path]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, k.src_path]
+
+
+def build(force: bool = False, libs=None) -> tuple[float, str]:
+    """Compile every library of `libs` (the kernels and the host library
+    by default) that is missing or older than its source (all of them when
+    `force`), one compiler process per source, all started together.
+    Returns the wall seconds and the compilers' output (ptxas's lines:
     registers, spills, shared memory); raises if one fails."""
-    stale = [k for k in KERNELS if force or not os.path.exists(k.lib_path)
+    libs = KERNELS + HOST_LIBS if libs is None else libs
+    stale = [k for k in libs if force or not os.path.exists(k.lib_path)
              or os.path.getmtime(k.src_path) > os.path.getmtime(k.lib_path)]
     if not stale:
         return 0.0, ""
-    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
     for k in stale:
         tmp = k.lib_path + f".{os.getpid()}.tmp"
         procs.append((k, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, k.src_path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            _command(k, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
     for k, tmp, proc in procs:
         log = proc.communicate()[0]
         logs.append(f"== {os.path.basename(k.src_path)}\n{log}")
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {k.src_path} ({proc.returncode}):\n{log}")
+            failed.append(f"{k.compiler} compiler failed on {k.src_path} "
+                          f"({proc.returncode}):\n{log}")
         else:
             os.replace(tmp, k.lib_path)
     if failed:

@@ -227,11 +227,13 @@ class Pipeline:
         n = 0
         pending = None
         if chunk_pairs is None:
+            # ingestion through the native packetizer (io/native.py)
             chunk_pairs = _sync_pairs(
-                ds.iterate_chunks(seq.events_left, freq, self.event_capacity,
-                                  self.device),
-                ds.iterate_chunks(seq.events_right, freq, self.event_capacity,
-                                  self.device), 0.5 / freq)
+                ds.iterate_chunks_fast(seq.events_left, freq,
+                                       self.event_capacity, self.device),
+                ds.iterate_chunks_fast(seq.events_right, freq,
+                                       self.event_capacity, self.device),
+                0.5 / freq)
         for (t_l, ch_l), (t_r, ch_r) in chunk_pairs:
             t = t_l
             # stream watchdog: gap > 1 s or time going backwards → restart

@@ -12,10 +12,12 @@ reads the other's files; `load_dsec_h5` and `load_mvsec_h5` read the
 public datasets' HDF5 layouts (h5py, imported where it is used); the
 rosbag converter is io/rosbag.py.
 
-`iterate_chunks` follows the JAX pipeline's production packetizer
-(esvio_tpu/native/packetizer.cc): frame k holds the events in
-(edge[k-1], edge[k]] with edges accumulated from t0 by 1/freq, newest
-`capacity` kept; empty frames yield no chunk.
+`iterate_chunks` follows the production packetizer
+(native/packetizer.cc): frame k holds the events in (edge[k-1], edge[k]]
+with edges accumulated from t0 by 1/freq, newest `capacity` kept; empty
+frames yield no chunk.  `iterate_chunks_fast` runs the packetizer itself
+(io/native.py), as `Pipeline.run` does; the numpy one is its plain
+version.
 """
 from __future__ import annotations
 
@@ -190,6 +192,32 @@ def iterate_chunks(stream: EventStream, freq: float, capacity: int, device,
         lo = hi
         if lo >= len(t):
             break
+
+
+def iterate_chunks_fast(stream: EventStream, freq: float, capacity: int,
+                        device, t_start=None, t_end=None
+                        ) -> Iterator[Tuple[float, EventChunk]]:
+    """`iterate_chunks` through the native packetizer (io/native.py): one
+    call packs the whole stream into padded frame arrays on the host, then
+    each tick's chunk is copied to `device`.  Yields the same
+    (stamp, EventChunk) sequence."""
+    from esvio_tpu_torch.io import native
+    t = np.ascontiguousarray(stream.t, np.float64)
+    if len(t) == 0 or freq <= 0:
+        return
+    t0 = float(t[0] if t_start is None else t_start)
+    t1 = float(t[-1] if t_end is None else t_end)
+    dt = 1.0 / freq
+    n_frames = max(len(np.arange(t0, t1 + dt, dt)) - 1, 0)
+    stamps, ts, xs, ys, ps, vs = native.packetize(
+        t, stream.x, stream.y, stream.p, t0, freq, capacity, n_frames)
+    for k in range(len(stamps)):
+        m = int(vs[k].sum())
+        if m == 0:
+            continue   # an empty tick is no chunk (see iterate_chunks)
+        to = lambda a: torch.tensor(a[k], device=device)
+        yield float(stamps[k]), EventChunk(t=to(ts), x=to(xs), y=to(ys),
+                                           p=to(ps), valid=to(vs), n_host=m)
 
 
 def imu_between(imu: ImuStream, t0: float, t1: float):

@@ -10,7 +10,16 @@ elimination (port of the live part of esvio_tpu/solver/gauss_newton.py).
     reduced camera system, solved by kernel K2 (`reduced_solve`);
   * `solve_window_relo`: the same LM with the in-window relocalization
     pose appended as a 6-dim block (196 unknowns, solved by the library's
-    Cholesky, as the JAX package does for any size but 190).
+    Cholesky, as the JAX package does for any size but 190);
+  * `solve_window_batched`: B windows at once along a native leading batch
+    axis (the JAX package vmaps `solve_window`): one assembly for all B,
+    the LM damping and accept test per window, and one K2 launch for the
+    B reduced systems per iteration.
+
+The assembly, the proposal and the LM bookkeeping broadcast over leading
+batch axes of the state, books, preintegrations and prior; a single
+window has none, and for it every operation is the one it was before the
+batch axis existed.
 
 Not ported: `linearize`, `assemble_normal`, `assemble_normal_fast` (test
 oracles of the JAX package) and the eigh branch of `reduced_solve`.
@@ -26,7 +35,7 @@ import torch
 from esvio_tpu_torch.core import lie
 from esvio_tpu_torch.imu import preintegration as pre
 from esvio_tpu_torch.solver import factors
-from esvio_tpu_torch.solver.chol_solve import chol_solve
+from esvio_tpu_torch.solver.chol_solve import chol_solve_batched
 from esvio_tpu_torch.solver.window import (
     DIM_ALL, N_EX, N_STATES, OFF_EX, OFF_SB, OFF_TD, WINDOW,
     FeatureBook, WindowState, apply_delta, init_window, start_frame,
@@ -59,10 +68,31 @@ def _book_gate(book: FeatureBook):
 
 
 def _at_start(a, start):
-    """a (L, F, ...) → a[l, start[l]] (L, ...)."""
-    idx = start.reshape((-1, 1) + (1,) * (a.dim() - 2))
-    idx = idx.expand((a.shape[0], 1) + a.shape[2:])
-    return torch.gather(a, 1, idx)[:, 0]
+    """a (*lead, L, F, ...) → a[..., l, start[..., l]] (*lead, L, ...)."""
+    d = start.dim()
+    idx = start.reshape(start.shape + (1,) * (a.dim() - d))
+    idx = idx.expand(start.shape + (1,) + a.shape[d + 1:])
+    return torch.gather(a, d, idx).squeeze(d)
+
+
+def _rows(x, idx):
+    """x (*lead, F, C), idx (*lead, L) → x[..., idx, :] (*lead, L, C)."""
+    return torch.gather(x, -2, idx[..., None].expand(idx.shape + x.shape[-1:]))
+
+
+def _bcast(a, x):
+    """a (*lead) viewed with trailing unit axes to broadcast against x."""
+    return a.reshape(a.shape + (1,) * (x.dim() - a.dim()))
+
+
+def _mv(A, v):
+    """A (*lead, m, n) · v (*lead, n)."""
+    return A @ v if v.dim() == 1 else (A @ v[..., None])[..., 0]
+
+
+def _sum_last(x, k):
+    """Sum over the last k axes."""
+    return torch.sum(x, dim=tuple(range(-k, 0)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,9 +114,11 @@ def _imu_onehot(dtype, device):
 def _proj_inputs(state: WindowState, book: FeatureBook, exl: int, exr: int):
     """Per-book projection-factor table inputs, rows per lane
     M = F (mono) + F (cross) + 1 (static); returns (args, mask, jidx, start)."""
-    L = book.un.shape[0]
+    lead = state.td.shape
+    L = book.un.shape[-3]
     F = N_STATES
     M = 2 * F + 1
+    LM = lead + (L, M)
     dev = book.un.device
     gate = _book_gate(book)
     start = start_frame(book)
@@ -97,38 +129,40 @@ def _proj_inputs(state: WindowState, book: FeatureBook, exl: int, exr: int):
                           book.inv_depth, torch.ones_like(book.inv_depth))
 
     j_idx = torch.arange(F, device=dev)
-    not_start = j_idx[None, :] != start[:, None]
-    mask_mono = gate[:, None] & book.obs & not_start
-    mask_cross = gate[:, None] & book.stereo & not_start
+    not_start = j_idx != start[..., None]
+    mask_mono = gate[..., None] & book.obs & not_start
+    mask_cross = gate[..., None] & book.stereo & not_start
     mask_static = gate & _at_start(book.stereo, start)
-    mask = torch.cat([mask_mono, mask_cross, mask_static[:, None]], 1)
+    mask = torch.cat([mask_mono, mask_cross, mask_static[..., None]], -1)
 
-    jidx = torch.cat([j_idx.expand(L, F), j_idx.expand(L, F), start[:, None]], 1)
-    pt_j = torch.cat([book.un, book.un_r, _at_start(book.un_r, start)[:, None]], 1)
+    jgrid = j_idx.expand(lead + (L, F))
+    jidx = torch.cat([jgrid, jgrid, start[..., None]], -1)
+    pt_j = torch.cat([book.un, book.un_r,
+                      _at_start(book.un_r, start)[..., None, :]], -2)
     vel_j = torch.cat([book.vel, book.vel_r,
-                       _at_start(book.vel_r, start)[:, None]], 1)
-    td_j = torch.cat([book.td_obs, book.td_obs, td_i[:, None]], 1)
+                       _at_start(book.vel_r, start)[..., None, :]], -2)
+    td_j = torch.cat([book.td_obs, book.td_obs, td_i[..., None]], -1)
 
-    P_st, Q_st = state.P[start], state.Q[start]
-    Pi = P_st[:, None].expand(L, M, 3)
-    Qi = Q_st[:, None].expand(L, M, 4)
+    P_st, Q_st = _rows(state.P, start), _rows(state.Q, start)
+    Pi = P_st[..., None, :].expand(LM + (3,))
+    Qi = Q_st[..., None, :].expand(LM + (4,))
 
     def j_table(allf, st_val):
-        grid = allf[None].expand((L,) + allf.shape)
-        return torch.cat([grid, grid, st_val[:, None]], 1)
+        grid = allf[..., None, :, :].expand(lead + (L,) + allf.shape[-2:])
+        return torch.cat([grid, grid, st_val[..., None, :]], -2)
 
     Pj = j_table(state.P, P_st)
     Qj = j_table(state.Q, Q_st)
     ex1_idx = torch.where(torch.arange(M, device=dev) < F, exl, exr)
-    ex_p0 = state.ex_p[exl].expand(L, M, 3)
-    ex_q0 = state.ex_q[exl].expand(L, M, 4)
-    ex_p1 = state.ex_p[ex1_idx][None].expand(L, M, 3)
-    ex_q1 = state.ex_q[ex1_idx][None].expand(L, M, 4)
-    lam = inv_dep[:, None].expand(L, M)
-    pti = pt_i[:, None].expand(L, M, 2)
-    vli = vel_i[:, None].expand(L, M, 2)
-    tdi = td_i[:, None].expand(L, M)
-    td = state.td.expand(L, M)
+    ex_p0 = state.ex_p[..., exl, None, None, :].expand(LM + (3,))
+    ex_q0 = state.ex_q[..., exl, None, None, :].expand(LM + (4,))
+    ex_p1 = state.ex_p[..., ex1_idx, :][..., None, :, :].expand(LM + (3,))
+    ex_q1 = state.ex_q[..., ex1_idx, :][..., None, :, :].expand(LM + (4,))
+    lam = inv_dep[..., None].expand(LM)
+    pti = pt_i[..., None, :].expand(LM + (2,))
+    vli = vel_i[..., None, :].expand(LM + (2,))
+    tdi = td_i[..., None].expand(LM)
+    td = state.td[..., None, None].expand(LM)
     args = (Pi, Qi, Pj, Qj, ex_p0, ex_q0, ex_p1, ex_q1, lam, td, pti, vli,
             tdi, pt_j, vel_j, td_j)
     return args, mask, jidx, start
@@ -141,7 +175,8 @@ def _proj_factor_table(state: WindowState, book: FeatureBook, exl: int,
     sum to the shared-extrinsic derivative), static = two-frame with
     j := i (the pose blocks cancel and are zeroed).
 
-    Returns (r (L,M,2), J (L,M,2,26), jidx (L,M), start (L,)), Cauchy
+    Returns (r (*lead,L,M,2), J (*lead,L,M,2,26), jidx (*lead,L,M),
+    start (*lead,L)), Cauchy
     weights and masks folded into r and J, mono ex1 block folded."""
     dtype = state.P.dtype
     F = N_STATES
@@ -164,9 +199,9 @@ def _proj_factor_table(state: WindowState, book: FeatureBook, exl: int,
 
 
 def _imu_inputs(state: WindowState):
-    return (state.P[:-1], state.Q[:-1], state.V[:-1], state.Ba[:-1],
-            state.Bg[:-1], state.P[1:], state.Q[1:], state.V[1:],
-            state.Ba[1:], state.Bg[1:])
+    fields = (state.P, state.Q, state.V, state.Ba, state.Bg)
+    return (tuple(x[..., :-1, :] for x in fields)
+            + tuple(x[..., 1:, :] for x in fields))
 
 
 def _one_hot(idx, n, dtype):
@@ -181,33 +216,37 @@ def assemble_normal_reduced(state: WindowState, book_img: FeatureBook,
     the camera system Hpp (190²), the camera-landmark coupling Hpl
     (190 × L), the diagonal landmark block hll (L,) and the gradient."""
     dtype, dev = state.P.dtype, state.P.device
-    L_img = book_img.un.shape[0]
-    L_evt = book_evt.un.shape[0]
+    lead = state.td.shape
+    L_img = book_img.un.shape[-3]
+    L_evt = book_evt.un.shape[-3]
     L_tot = L_img + L_evt
     F = N_STATES
     M = 2 * F + 1
+    LMr = lead + (L_tot, M, 2)
 
     # ---- IMU factors (banded JᵀJ via constant one-hot products) -----------
     if imu_sqrt is None:
         imu_sqrt = factors.imu_sqrt_info(preints.covariance)
     r_imu, J_imu = factors.imu_residual_jac(*_imu_inputs(state), preints, g,
                                             imu_sqrt)
-    mw = imu_valid[:, None].to(dtype)
+    mw = imu_valid[..., None].to(dtype)
     r_imu = r_imu * mw
-    J_imu = J_imu * mw[:, :, None]
+    J_imu = J_imu * mw[..., None]
     E = _imu_onehot(dtype, dev)                                  # (10, 30, 190)
-    Hi = torch.einsum("nak,nal->nkl", J_imu, J_imu)              # (10, 30, 30)
-    H_imu = torch.einsum("nka,nkb->ab", E, torch.einsum("nkl,nlb->nkb", Hi, E))
-    b_imu = torch.einsum("nka,nk->a", E, torch.einsum("nak,na->nk", J_imu, r_imu))
-    cost = torch.sum(r_imu * r_imu)
+    Hi = torch.einsum("...nak,...nal->...nkl", J_imu, J_imu)     # (10, 30, 30)
+    H_imu = torch.einsum("nka,...nkb->...ab", E,
+                         torch.einsum("...nkl,nlb->...nkb", Hi, E))
+    b_imu = torch.einsum("nka,...nk->...a", E,
+                         torch.einsum("...nak,...na->...nk", J_imu, r_imu))
+    cost = _sum_last(r_imu * r_imu, 2)
 
     # ---- projection factors: one table across both books ------------------
     ri, Ji, jidx_i, st_i = _proj_factor_table(state, book_img, 0, 2, cauchy_c)
     re_, Je, jidx_e, st_e = _proj_factor_table(state, book_evt, 1, 3, cauchy_c)
-    r_all = torch.cat([ri, re_], 0)               # (Lt, M, 2)
-    J_all = torch.cat([Ji, Je], 0)                # (Lt, M, 2, 26)
-    jidx = torch.cat([jidx_i, jidx_e], 0)
-    start_all = torch.cat([st_i, st_e], 0)
+    r_all = torch.cat([ri, re_], -3)              # (Lt, M, 2)
+    J_all = torch.cat([Ji, Je], -4)               # (Lt, M, 2, 26)
+    jidx = torch.cat([jidx_i, jidx_e], -2)
+    start_all = torch.cat([st_i, st_e], -1)
 
     # expansion to dense [pose 66 | ex 24 | td 1] = 91 columns via one-hots
     Oi = _one_hot(start_all, F, dtype)            # (Lt, 11)
@@ -220,42 +259,43 @@ def assemble_normal_reduced(state: WindowState, book_img: FeatureBook,
     Oex1 = _one_hot(torch.where(is_mono[None, :], exl_slot[:, None],
                                 exr_slot[:, None]), N_EX, dtype)   # (Lt, M, 4)
 
-    Jpose = (torch.einsum("li,lmra->lmria", Oi, J_all[..., 0:6])
-             .reshape(L_tot, M, 2, 66)
-             + torch.einsum("lmi,lmra->lmria", Oj, J_all[..., 6:12])
-             .reshape(L_tot, M, 2, 66))
-    Jex = (torch.einsum("le,lmra->lmrea", Oex0, J_all[..., 12:18])
-           .reshape(L_tot, M, 2, 24)
-           + torch.einsum("lme,lmra->lmrea", Oex1, J_all[..., 18:24])
-           .reshape(L_tot, M, 2, 24))
+    Jpose = (torch.einsum("...li,...lmra->...lmria", Oi, J_all[..., 0:6])
+             .reshape(LMr + (66,))
+             + torch.einsum("...lmi,...lmra->...lmria", Oj, J_all[..., 6:12])
+             .reshape(LMr + (66,)))
+    Jex = (torch.einsum("le,...lmra->...lmrea", Oex0, J_all[..., 12:18])
+           .reshape(LMr + (24,))
+           + torch.einsum("lme,...lmra->...lmrea", Oex1, J_all[..., 18:24])
+           .reshape(LMr + (24,)))
     Jd = torch.cat([Jpose, Jex, J_all[..., 25:26]], dim=-1)     # 91 cols
     Jlam = J_all[..., 24]                                       # (Lt, M, 2)
 
-    Jx = Jd.reshape(-1, 91)
-    H91 = Jx.T @ Jx
-    b91 = Jx.T @ r_all.reshape(-1)
-    Hlam91 = torch.einsum("lmra,lmr->al", Jd, Jlam)             # (91, Lt)
-    hll = torch.einsum("lmr,lmr->l", Jlam, Jlam)
-    bl = torch.einsum("lmr,lmr->l", Jlam, r_all)
-    cost = cost + torch.sum(r_all * r_all)
+    Jx = Jd.reshape(lead + (-1, 91))
+    H91 = Jx.mT @ Jx
+    b91 = _mv(Jx.mT, r_all.reshape(lead + (-1,)))
+    Hlam91 = torch.einsum("...lmra,...lmr->...al", Jd, Jlam)    # (91, Lt)
+    hll = torch.einsum("...lmr,...lmr->...l", Jlam, Jlam)
+    bl = torch.einsum("...lmr,...lmr->...l", Jlam, r_all)
+    cost = cost + _sum_last(r_all * r_all, 3)
 
     # ---- place the 91-wide system into the DIM_ALL layout -----------------
     secs = ((0, 0, 66), (66, OFF_EX, 24), (90, OFF_TD, 1))
-    J0w = prior.J0 * prior.valid.to(dtype)
+    valid = prior.valid.to(dtype)
+    J0w = prior.J0 * valid[..., None, None]
     if prior_H is None:
-        prior_H = J0w.T @ J0w
-    r_prior = (prior.r0 + prior.J0 @ state_minus(state, prior.lin)) \
-        * prior.valid.to(dtype)
+        prior_H = J0w.mT @ J0w
+    r_prior = (prior.r0 + _mv(prior.J0, state_minus(state, prior.lin))) \
+        * valid[..., None]
 
     Hpp = H_imu + prior_H
-    Hpl = torch.zeros((DIM_ALL, L_tot), dtype=dtype, device=dev)
-    bp = b_imu + J0w.T @ r_prior
+    Hpl = torch.zeros(lead + (DIM_ALL, L_tot), dtype=dtype, device=dev)
+    bp = b_imu + _mv(J0w.mT, r_prior)
     for (a, ra, n) in secs:
         for (b, rb, m) in secs:
-            Hpp[ra:ra + n, rb:rb + m] += H91[a:a + n, b:b + m]
-        Hpl[ra:ra + n] += Hlam91[a:a + n]
-        bp[ra:ra + n] += b91[a:a + n]
-    cost = cost + torch.sum(r_prior * r_prior)
+            Hpp[..., ra:ra + n, rb:rb + m] += H91[..., a:a + n, b:b + m]
+        Hpl[..., ra:ra + n, :] += Hlam91[..., a:a + n, :]
+        bp[..., ra:ra + n] += b91[..., a:a + n]
+    cost = cost + _sum_last(r_prior * r_prior, 1)
     return Hpp, Hpl, hll, bp, bl, cost
 
 
@@ -266,34 +306,42 @@ def problem_cost(state: WindowState, book_img: FeatureBook,
     dtype = state.P.dtype
     imu_sqrt = factors.imu_sqrt_info(preints.covariance)
     r_imu = factors.imu_residual(*_imu_inputs(state), preints, g, imu_sqrt)
-    cost = torch.sum((r_imu * imu_valid[:, None].to(dtype)) ** 2)
+    cost = _sum_last((r_imu * imu_valid[..., None].to(dtype)) ** 2, 2)
     for book, exl, exr in ((book_img, 0, 2), (book_evt, 1, 3)):
         args, mask, _, _ = _proj_inputs(state, book, exl, exr)
         r = factors.proj_two_frame_two_cam(*args)
         w = factors.cauchy_weight(torch.sum(r * r, -1), cauchy_c) * mask.to(dtype)
-        cost = cost + torch.sum((r * w[..., None]) ** 2)
-    r_prior = (prior.r0 + prior.J0 @ state_minus(state, prior.lin)) \
-        * prior.valid.to(dtype)
-    return 0.5 * (cost + torch.sum(r_prior * r_prior))
+        cost = cost + _sum_last((r * w[..., None]) ** 2, 3)
+    r_prior = (prior.r0 + _mv(prior.J0, state_minus(state, prior.lin))) \
+        * prior.valid.to(dtype)[..., None]
+    return 0.5 * (cost + _sum_last(r_prior * r_prior, 1))
 
 
 def reduced_solve(Hr, br, lam_damp):
     """Solve (Hr + λI) dx = −br on the Jacobi-scaled reduced camera system
     by LM-damped Cholesky.  A failed factorization yields non-finite dx,
-    which the LM accept test rejects (then λ×100).  Returns (dx, finite)."""
-    n = Hr.shape[0]
+    which the LM accept test rejects (then λ×100).  Returns (dx, finite).
+
+    Hr (*lead, n, n), br (*lead, n), lam_damp (*lead) or a number: the
+    systems of a batch are solved together (one K2 launch for all of them)
+    and `finite` is per system."""
+    n = Hr.shape[-1]
     lam = lam_damp if torch.is_tensor(lam_damp) else torch.full(
-        (), lam_damp, dtype=Hr.dtype, device=Hr.device)
+        Hr.shape[:-2], lam_damp, dtype=Hr.dtype, device=Hr.device)
     if Hr.dtype == torch.float32 and n == DIM_ALL:
-        dx = -chol_solve(Hr, br, lam)
+        # a batch's einsum may leave its systems strided; K2 reads rows
+        dx = -chol_solve_batched(Hr.reshape(-1, n, n).contiguous(),
+                                 br.reshape(-1, n).contiguous(),
+                                 lam.reshape(-1).contiguous()).reshape(br.shape)
     else:
         eye = torch.eye(n, dtype=Hr.dtype, device=Hr.device)
-        L, info = torch.linalg.cholesky_ex(Hr + lam * eye)
-        y = torch.linalg.solve_triangular(L, br[:, None], upper=False)
-        dx = -torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
-        dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
-    finite = torch.all(torch.isfinite(dx))
-    return torch.where(finite, dx, torch.zeros_like(dx)), finite
+        L, info = torch.linalg.cholesky_ex(Hr + lam[..., None, None] * eye)
+        y = torch.linalg.solve_triangular(L, br[..., None], upper=False)
+        dx = -torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+        dx = torch.where((info == 0)[..., None], dx,
+                         torch.full_like(dx, float("nan")))
+    finite = torch.all(torch.isfinite(dx), dim=-1)
+    return torch.where(finite[..., None], dx, torch.zeros_like(dx)), finite
 
 
 def damping_schedule(dtype):
@@ -304,9 +352,11 @@ def damping_schedule(dtype):
 
 
 def _select(accept, old, new):
-    """Field-wise torch.where(accept, new, old) over a dataclass."""
+    """Field-wise torch.where(accept, new, old) over a dataclass; accept
+    (*lead) per window."""
     return dataclasses.replace(old, **{
-        f.name: torch.where(accept, getattr(new, f.name), getattr(old, f.name))
+        f.name: torch.where(_bcast(accept, getattr(old, f.name)),
+                            getattr(new, f.name), getattr(old, f.name))
         for f in dataclasses.fields(old)})
 
 
@@ -318,21 +368,22 @@ def _lm_proposal(sys_acc, lam_damp, frozen):
     unscaled."""
     Hpp_r, Hpl_r, hll_r, bp_r, bl_r, _ = sys_acc
     dtype = Hpp_r.dtype
-    n = Hpp_r.shape[0]
-    col_norm = torch.sqrt(torch.cat([torch.diagonal(Hpp_r), hll_r]))
+    n = Hpp_r.shape[-1]
+    col_norm = torch.sqrt(torch.cat(
+        [torch.diagonal(Hpp_r, dim1=-2, dim2=-1), hll_r], -1))
     active_col = col_norm > 1e-10
     if frozen is not None:
         active_col = active_col & ~torch.cat(
-            [frozen, torch.zeros(col_norm.shape[0] - frozen.shape[0],
+            [frozen, torch.zeros(col_norm.shape[-1] - frozen.shape[-1],
                                  dtype=torch.bool, device=frozen.device)])
     d_inv = torch.where(active_col,
                         1.0 / torch.where(active_col, col_norm,
                                           torch.ones_like(col_norm)),
                         torch.zeros_like(col_norm))
-    dp_i = d_inv[:n]
-    dl_i = d_inv[n:]
-    Hpp = Hpp_r * dp_i[None, :] * dp_i[:, None]
-    Hpl = Hpl_r * dp_i[:, None] * dl_i[None, :]
+    dp_i = d_inv[..., :n]
+    dl_i = d_inv[..., n:]
+    Hpp = Hpp_r * dp_i[..., None, :] * dp_i[..., :, None]
+    Hpl = Hpl_r * dp_i[..., :, None] * dl_i[..., None, :]
     hll = hll_r * dl_i * dl_i
     bp = bp_r * dp_i
     bl = bl_r * dl_i
@@ -341,30 +392,31 @@ def _lm_proposal(sys_acc, lam_damp, frozen):
     inv_hll = torch.where(active_lm,
                           1.0 / torch.where(active_lm, hll, torch.ones_like(hll)),
                           torch.zeros_like(hll))
-    Hr = Hpp - (Hpl * inv_hll[None, :]) @ Hpl.T
-    br = bp - Hpl @ (bl * inv_hll)
+    Hr = Hpp - (Hpl * inv_hll[..., None, :]) @ Hpl.mT
+    br = bp - _mv(Hpl, bl * inv_hll)
 
     dxp_s, finite = reduced_solve(Hr, br, lam_damp)
-    dlam_s = -(bl + Hpl.T @ dxp_s) * inv_hll * finite.to(dtype)
+    dlam_s = -(bl + _mv(Hpl.mT, dxp_s)) * inv_hll * finite.to(dtype)[..., None]
     return dxp_s * dp_i, dlam_s * dl_i
 
 
 def _with_depths(book_img, book_evt, dlam):
     """Both books with their inverse depths moved by dlam (image lanes
     first)."""
-    L_img = book_img.un.shape[0]
+    L_img = book_img.un.shape[-3]
     return (dataclasses.replace(book_img,
-                                inv_depth=book_img.inv_depth + dlam[:L_img]),
+                                inv_depth=book_img.inv_depth + dlam[..., :L_img]),
             dataclasses.replace(book_evt,
-                                inv_depth=book_evt.inv_depth + dlam[L_img:]))
+                                inv_depth=book_evt.inv_depth + dlam[..., L_img:]))
 
 
 def _lm_accept(accept, book_img, book_evt, bi_new, be_new, sys_acc, sys_new,
                lam_damp, lam_floor):
     """The books, accepted system and damping after the accept test."""
     keep = lambda old, new: dataclasses.replace(old, inv_depth=torch.where(
-        accept, new.inv_depth, old.inv_depth))
-    sys_acc = tuple(torch.where(accept, n, o) for o, n in zip(sys_acc, sys_new))
+        _bcast(accept, old.inv_depth), new.inv_depth, old.inv_depth))
+    sys_acc = tuple(torch.where(_bcast(accept, o), n, o)
+                    for o, n in zip(sys_acc, sys_new))
     lam_damp = torch.where(accept, torch.clamp(lam_damp / 10.0, min=lam_floor),
                            torch.clamp(lam_damp * 100.0, max=1e4))
     return keep(book_img, bi_new), keep(book_evt, be_new), sys_acc, lam_damp
@@ -380,10 +432,13 @@ def solve_window(state: WindowState, book_img: FeatureBook,
     SetParameterBlockConstant analog).  Deferred-acceptance LM: the normal
     equations at the current accepted state are carried; each iteration
     proposes a step from them and runs ONE assembly at the proposed state,
-    whose cost is the accept test.  No host synchronisation inside."""
+    whose cost is the accept test.  No host synchronisation inside.
+
+    Every argument but g may carry leading batch axes (see
+    `solve_window_batched`); the costs are then (*lead, iters)."""
     dtype = state.P.dtype
-    J0w = prior.J0 * prior.valid.to(dtype)
-    prior_H0 = J0w.T @ J0w
+    J0w = prior.J0 * prior.valid.to(dtype)[..., None, None]
+    prior_H0 = J0w.mT @ J0w
     imu_sqrt0 = factors.imu_sqrt_info(preints.covariance)
 
     def assemble(st, bi, be):
@@ -393,7 +448,8 @@ def solve_window(state: WindowState, book_img: FeatureBook,
 
     sys_acc = assemble(state, book_img, book_evt)
     lam0, lam_floor = damping_schedule(dtype)
-    lam_damp = torch.full((), lam0, dtype=dtype, device=state.P.device)
+    lam_damp = torch.full(state.td.shape, lam0, dtype=dtype,
+                          device=state.P.device)
     costs = []
     for _ in range(iters):
         dxp, dlam = _lm_proposal(sys_acc, lam_damp, frozen)
@@ -406,7 +462,26 @@ def solve_window(state: WindowState, book_img: FeatureBook,
             accept, book_img, book_evt, bi_new, be_new, sys_acc, sys_new,
             lam_damp, lam_floor)
         costs.append(0.5 * sys_new[5])
-    return state, book_img, book_evt, torch.stack(costs)
+    return state, book_img, book_evt, torch.stack(costs, -1)
+
+
+def solve_window_batched(state: WindowState, book_img: FeatureBook,
+                         book_evt: FeatureBook, preints: pre.Preintegrated,
+                         imu_valid, prior: Prior, g, iters: int = 8,
+                         cauchy_c: float = 1.0):
+    """B windows solved as one batch: state, books, preintegrations and
+    prior with a leading axis B, imu_valid (B, 10), g (3,) shared →
+    (state', book_img', book_evt', costs (B, iters)), what B separate
+    `solve_window` calls return.  λ and the accept test are per window; each
+    iteration assembles all B systems at once and solves the B reduced
+    systems in one K2 launch (the JAX package vmaps `solve_window`, whose
+    Pallas call batches the same way)."""
+    if state.td.dim() != 1 or imu_valid.dim() != 2:
+        raise ValueError("solve_window_batched takes one leading batch axis: "
+                         f"td {tuple(state.td.shape)}, imu_valid "
+                         f"{tuple(imu_valid.shape)}")
+    return solve_window(state, book_img, book_evt, preints, imu_valid, prior,
+                        g, iters=iters, cauchy_c=cauchy_c)
 
 
 # --------------------------------------------------------------------------

@@ -7,6 +7,10 @@ esvio_tpu/solver/window.py).
 Landmark inverse depths live outside this vector (Schur-eliminated).
 Extrinsic slots: 0 = image-left, 1 = event-left, 2 = image-right,
 3 = event-right.
+
+States, books and deltas may carry leading batch axes (a batch of windows,
+solver/gauss_newton.solve_window_batched); the functions here broadcast
+over them.
 """
 from __future__ import annotations
 
@@ -58,17 +62,29 @@ def init_window(device, dtype=torch.float32) -> WindowState:
                        ex_p=z(N_EX, 3), ex_q=q.repeat(N_EX, 1), td=z())
 
 
+def tree_map(fn, *objs):
+    """fn applied field by field over dataclasses of tensors (recursing
+    into nested ones, e.g. a Prior's `lin` window)."""
+    first = objs[0]
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
+            f.name: tree_map(fn, *(getattr(o, f.name) for o in objs))
+            for f in dataclasses.fields(first)})
+    return fn(*objs)
+
+
 def apply_delta(state: WindowState, dx) -> WindowState:
     """x ⊞ δ with the layout above (quaternions right-multiplied)."""
-    dp = dx[OFF_POSE:OFF_SB].reshape(N_STATES, 6)
-    dsb = dx[OFF_SB:OFF_EX].reshape(N_STATES, 9)
-    dex = dx[OFF_EX:OFF_TD].reshape(N_EX, 6)
-    Q = lie.quat_normalize(lie.quat_mul(state.Q, lie.delta_q(dp[:, 3:6])))
-    ex_q = lie.quat_normalize(lie.quat_mul(state.ex_q, lie.delta_q(dex[:, 3:6])))
+    lead = dx.shape[:-1]
+    dp = dx[..., OFF_POSE:OFF_SB].reshape(lead + (N_STATES, 6))
+    dsb = dx[..., OFF_SB:OFF_EX].reshape(lead + (N_STATES, 9))
+    dex = dx[..., OFF_EX:OFF_TD].reshape(lead + (N_EX, 6))
+    Q = lie.quat_normalize(lie.quat_mul(state.Q, lie.delta_q(dp[..., 3:6])))
+    ex_q = lie.quat_normalize(lie.quat_mul(state.ex_q, lie.delta_q(dex[..., 3:6])))
     return WindowState(
-        P=state.P + dp[:, 0:3], Q=Q, V=state.V + dsb[:, 0:3],
-        Ba=state.Ba + dsb[:, 3:6], Bg=state.Bg + dsb[:, 6:9],
-        ex_p=state.ex_p + dex[:, 0:3], ex_q=ex_q, td=state.td + dx[OFF_TD])
+        P=state.P + dp[..., 0:3], Q=Q, V=state.V + dsb[..., 0:3],
+        Ba=state.Ba + dsb[..., 3:6], Bg=state.Bg + dsb[..., 6:9],
+        ex_p=state.ex_p + dex[..., 0:3], ex_q=ex_q, td=state.td + dx[..., OFF_TD])
 
 
 def state_minus(state: WindowState, lin: WindowState):
@@ -78,11 +94,13 @@ def state_minus(state: WindowState, lin: WindowState):
     dq = torch.where(dq[..., :1] >= 0, dq, -dq)
     dex_q = lie.quat_mul(lie.quat_conj(lin.ex_q), state.ex_q)
     dex_q = torch.where(dex_q[..., :1] >= 0, dex_q, -dex_q)
-    dpose = torch.cat([state.P - lin.P, 2.0 * dq[..., 1:]], -1).reshape(-1)
+    lead = state.td.shape
+    dpose = torch.cat([state.P - lin.P, 2.0 * dq[..., 1:]], -1).reshape(lead + (-1,))
     dsb = torch.cat([state.V - lin.V, state.Ba - lin.Ba, state.Bg - lin.Bg],
-                    -1).reshape(-1)
-    dex = torch.cat([state.ex_p - lin.ex_p, 2.0 * dex_q[..., 1:]], -1).reshape(-1)
-    return torch.cat([dpose, dsb, dex, (state.td - lin.td)[None]])
+                    -1).reshape(lead + (-1,))
+    dex = torch.cat([state.ex_p - lin.ex_p, 2.0 * dex_q[..., 1:]],
+                    -1).reshape(lead + (-1,))
+    return torch.cat([dpose, dsb, dex, (state.td - lin.td)[..., None]], -1)
 
 
 @dataclasses.dataclass
@@ -116,11 +134,11 @@ def empty_book(capacity: int, device, dtype=torch.float32) -> FeatureBook:
 
 def start_frame(book: FeatureBook):
     """(L,) index of the first observed frame (0 if never observed)."""
-    return torch.argmax(book.obs.to(torch.uint8), dim=1)
+    return torch.argmax(book.obs.to(torch.uint8), dim=-1)
 
 
 def used_num(book: FeatureBook):
-    return torch.sum(book.obs, dim=1)
+    return torch.sum(book.obs, dim=-1)
 
 
 def gauge_transform(state: WindowState, ref_p0, ref_q0):

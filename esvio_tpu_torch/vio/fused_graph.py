@@ -24,6 +24,7 @@ A capture or replay that fails raises; nothing falls back to eager.
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -125,13 +126,21 @@ class _Capture:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = {k: k.launches for k in _kernels.KERNELS}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            ws, bi, be, preints, post = segment(state, self.x)
-            self.packed, self.layout = pack_post(post)
-            # preints holds views of the static window (its linearization
-            # biases are ws.Ba/Bg[:W]): copied out before the write-back
-            self.preints = clone_state(preints)
-            _copy_into(state[:3], (ws, bi, be))
+        # no garbage collection inside the capture: a dead pipeline's graph,
+        # destroyed mid-capture by a collection in any thread, invalidates it
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                ws, bi, be, preints, post = segment(state, self.x)
+                self.packed, self.layout = pack_post(post)
+                # preints holds views of the static window (its linearization
+                # biases are ws.Ba/Bg[:W]): copied out before the write-back
+                self.preints = clone_state(preints)
+                _copy_into(state[:3], (ws, bi, be))
+        finally:
+            if gc_on:
+                gc.enable()
         self.launches = {k: k.launches - before[k] for k in _kernels.KERNELS}
         for k in _kernels.KERNELS:
             k.launches = before[k]

@@ -46,7 +46,7 @@ def _runs(argv):
     return out
 
 
-def _with_key(real_init, key):
+def with_tracker_key(real_init, key):
     """trk.init_state with the event tracker's RANSAC key set to `key`
     (None: the tracker's own)."""
     def init_state(cfg, device="cuda", **kw):
@@ -177,7 +177,7 @@ def main(device, argv):
     made = {}
     for motion, reloc, seed in _runs(argv):
         # the pipeline (and every restart) starts its tracker with this key
-        trk.init_state = _with_key(
+        trk.init_state = with_tracker_key(
             real_init, None if seed is None else prng.PRNGKey(seed, device))
         if motion not in made:
             made[motion] = loop_pipeline(device, motion_correction=motion)

@@ -358,6 +358,16 @@ BENCH = dict(H=240, W=320, focal=320.0, duration=2.4)
 FRAME_HZ = 15          # the ESVIO golden's frames (tests/test_golden_trace.py:33)
 
 
+def vio_sequence(H, W, focal, duration, mode="esio", baseline=0.10,
+                 plane_z=4.0, img_H=None, img_W=None):
+    """(seq, gt_t, gt_P): the sequence `vio_pipeline` renders for these
+    settings (picklable, so another process can render it)."""
+    return planar_vio_sequence_rot(
+        np.random.default_rng(0), H=H, W=W, focal=focal, plane_z=plane_z,
+        baseline=baseline, duration=duration,
+        frame_hz=FRAME_HZ if mode == "esvio" else 0, img_H=img_H, img_W=img_W)
+
+
 def vio_pipeline(device, H, W, focal, duration, mode="esio", baseline=0.10,
                  plane_z=4.0, fused=True, img_H=None, img_W=None,
                  loop_closure=0, sequence=None, config_dir=None):
@@ -380,10 +390,8 @@ def vio_pipeline(device, H, W, focal, duration, mode="esio", baseline=0.10,
     from esvio_tpu_torch.vio import estimator as est_mod
 
     esvio = mode == "esvio"
-    seq, gt_t, gt_P = sequence or planar_vio_sequence_rot(
-        np.random.default_rng(0), H=H, W=W, focal=focal, plane_z=plane_z,
-        baseline=baseline, duration=duration,
-        frame_hz=FRAME_HZ if esvio else 0, img_H=img_H, img_W=img_W)
+    seq, gt_t, gt_P = sequence or vio_sequence(
+        H, W, focal, duration, mode, baseline, plane_z, img_H, img_W)
     cam = camera.make_pinhole(focal, focal, W / 2, H / 2, width=W, height=H)
     R = np.eye(3)
     sys_cfg = SystemConfig(
@@ -452,27 +460,35 @@ LOOP_GYR_BIAS = np.array([0.01, -0.015, 0.008])
 LOOP_ACC_BIAS = np.array([0.05, 0.03, -0.08])
 
 
+def loop_sequence(H=120, W=160, focal=200.0, duration=3.6, baseline=0.10,
+                  plane_z=4.0, mode="esio"):
+    """(seq, gt_t, gt_P): the sequence `loop_pipeline` renders."""
+    return planar_vio_sequence_rot(
+        np.random.default_rng(0), H=H, W=W, focal=focal, plane_z=plane_z,
+        baseline=baseline, duration=duration, texture="smooth",
+        gyr_bias=LOOP_GYR_BIAS, acc_bias=LOOP_ACC_BIAS,
+        frame_hz=FRAME_HZ if mode == "esvio" else 0)
+
+
 def loop_pipeline(device, H=120, W=160, focal=200.0, duration=3.6,
                   motion_correction=False, fused=True, baseline=0.10,
-                  plane_z=4.0, mode="esio"):
+                  plane_z=4.0, mode="esio", sequence=None):
     """(make_pipeline, seq, gt_t, gt_P) of tests/test_e2e_loops.py:31-67 on
     the port: ESIO with loop closure and fast relocalization, the loop
     closer's skip_recent at 12 (the revisit cadence of this sequence), and
     with motion_correction the IMU-aided event warp on.  mode "esvio":
     system_mode 1 with stereo frames at FRAME_HZ rendered from the same
     texture (as vio_pipeline renders them), the loop keyframes taken from
-    the left frame."""
+    the left frame.  `sequence`: a (seq, gt_t, gt_P) made earlier with the
+    same settings (`loop_sequence`)."""
     from esvio_tpu_torch.apps.pipeline import Pipeline
     from esvio_tpu_torch.core import camera
     from esvio_tpu_torch.frontend import tracker as trk
     from esvio_tpu_torch.io.config import SystemConfig
     from esvio_tpu_torch.vio import estimator as est_mod
 
-    seq, gt_t, gt_P = planar_vio_sequence_rot(
-        np.random.default_rng(0), H=H, W=W, focal=focal, plane_z=plane_z,
-        baseline=baseline, duration=duration, texture="smooth",
-        gyr_bias=LOOP_GYR_BIAS, acc_bias=LOOP_ACC_BIAS,
-        frame_hz=FRAME_HZ if mode == "esvio" else 0)
+    seq, gt_t, gt_P = sequence or loop_sequence(H, W, focal, duration,
+                                                baseline, plane_z, mode)
     esvio = mode == "esvio"
     cam = camera.make_pinhole(focal, focal, W / 2, H / 2, width=W, height=H)
     R = np.eye(3)
@@ -969,3 +985,209 @@ def write_rosbag(path, seq, height, width, compression="bz2", msg_dt=0.01,
                                  "compression": compression.encode(),
                                  "size": struct.pack("<I", len(raw))}, body))
     return path
+
+
+# ---------------------------------------------------------------------------
+# calibration views (numpy copies of tests/test_calib.py's _board, _views
+# and render_chessboard) and its four ground-truth cameras
+# ---------------------------------------------------------------------------
+
+CALIB_GT = {
+    "pinhole": dict(fx=420.0, fy=415.0, cx=330.0, cy=245.0,
+                    dist=np.array([-0.30, 0.10, 1e-3, -5e-4])),
+    "kb": dict(mu=380.0, mv=378.0, u0=320.0, v0=240.0,
+               ks=np.array([-0.01, 0.02, -0.008, 0.001])),
+    "mei": dict(gamma1=760.0, gamma2=755.0, u0=325.0, v0=242.0, xi=0.9,
+                dist=np.array([-0.15, 0.05, 5e-4, -3e-4])),
+    "scara": dict(poly=np.array([-420.0, 0.0, 8.0e-4, -2.0e-7, 1.0e-10]),
+                  cx=322.0, cy=243.0),
+}
+
+
+def calib_board(nx=8, ny=6, square=0.03):
+    xs, ys = np.meshgrid(np.arange(nx), np.arange(ny))
+    return np.stack([xs.ravel() * square, ys.ravel() * square,
+                     np.zeros(nx * ny)], -1)
+
+
+def calib_views(rng, board, V=16):
+    """Strongly tilted views over a depth range (tests/test_calib.py)."""
+    ws, ts = [], []
+    for _ in range(V):
+        w = rng.normal(0, 0.45, 3)
+        w[2] = rng.normal(0, 0.2)
+        t = np.array([rng.uniform(-0.15, 0.15), rng.uniform(-0.12, 0.12),
+                      rng.uniform(0.3, 0.9)])
+        t[:2] -= board[:, :2].mean(0)
+        ws.append(w)
+        ts.append(t)
+    return np.stack(ws), np.stack(ts)
+
+
+def calib_observations(project, seed=0, so3=None):
+    """(object_pts (V, N, 3), image_pts (V, N, 2)) of tests/test_calib.py's
+    16 views of its 8×6 board, 0.1 px of detection noise, with
+    project(pc (N, 3)) → pixels (N, 2) the ground-truth camera and so3(w)
+    the rotation of a view (this module's so3_exp by default)."""
+    so3 = so3 or so3_exp
+    rng = np.random.default_rng(seed)
+    board = calib_board()
+    ws, ts = calib_views(rng, board)
+    img = np.stack([project(board @ so3(w).T + t) for w, t in zip(ws, ts)])
+    img = img + rng.normal(0, 0.1, img.shape)
+    return np.tile(board[None], (len(ws), 1, 1)), img
+
+
+def render_chessboard(rows, cols, square=20, margin=30, rng=None):
+    """Chessboard image with (rows, cols) INNER corners and the corners
+    row-major (tests/test_calib.py)."""
+    ny, nx = rows + 1, cols + 1
+    H = ny * square + 2 * margin
+    W = nx * square + 2 * margin
+    y, x = np.mgrid[0:H, 0:W]
+    bx = (x - margin) // square
+    by = (y - margin) // square
+    inside = (x >= margin) & (x < W - margin) & (y >= margin) & (y < H - margin)
+    img = np.where(inside & (((bx + by) % 2) == 0), 220.0, 40.0)
+    img = np.where(inside, img, 130.0)
+    corners = np.stack(np.meshgrid(
+        margin + square * np.arange(1, nx),
+        margin + square * np.arange(1, ny), indexing="xy"), -1)
+    corners = corners.reshape(rows, cols, 2).reshape(-1, 2).astype(float)
+    if rng is not None:
+        img = img + rng.normal(0, 3.0, img.shape)
+    return img, corners
+
+
+def long_log(rng, T=38, n_lm=240, noise_px=0.3 / 460.0, p_noise=0.06):
+    """(traj, long_state, long_book) of tests/test_sequence_parallel.py's
+    long log (build_long_log): T frames at 20 Hz, n_lm landmarks seen in
+    stereo, a noisy initial position guess, the IMU samples per interval."""
+    traj = simulate_trajectory(rng, n_frames=T, imu_per_frame=10,
+                               frame_dt=0.05)
+    lms = make_world(rng, traj)[:n_lm]
+    L = len(lms)
+    un = np.zeros((L, T, 2))
+    un_r = np.zeros((L, T, 2))
+    obs = np.zeros((L, T), bool)
+    stereo = np.zeros((L, T), bool)
+    for f in range(T):
+        pc = (lms - traj["P"][f]) @ quat_to_rot(traj["Q"][f])
+        z = pc[:, 2]
+        vis = (z > 1.2) & (z < 6.5)
+        u = pc[:, :2] / np.where(vis, z, 1.0)[:, None]
+        vis &= (np.abs(u[:, 0]) < 0.6) & (np.abs(u[:, 1]) < 0.6)
+        pcr = pc - np.array([EST_BASELINE, 0, 0.0])
+        ur = pcr[:, :2] / np.where(vis, pcr[:, 2], 1.0)[:, None]
+        obs[:, f] = vis
+        stereo[:, f] = vis
+        un[:, f] = u + rng.normal(0, noise_px, (L, 2))
+        un_r[:, f] = ur + rng.normal(0, noise_px, (L, 2))
+
+    k = traj["imu_per_frame"]
+    C = k + 2
+    imu_dt = np.zeros((T - 1, C))
+    imu_acc = np.zeros((T - 1, C, 3))
+    imu_gyr = np.zeros((T - 1, C, 3))
+    imu_n = np.full(T - 1, k, np.int32)
+    for f in range(T - 1):
+        for s in range(k):
+            i = f * k + s + 1
+            imu_dt[f, s] = traj["dt"]
+            imu_acc[f, s] = traj["imu_acc"][i]
+            imu_gyr[f, s] = traj["imu_gyr"][i]
+
+    P0 = traj["P"] + rng.normal(0, p_noise, traj["P"].shape)
+    long_state = dict(
+        P=P0, Q=traj["Q"], V=traj["V"], Ba=np.zeros((T, 3)),
+        Bg=np.zeros((T, 3)),
+        ex_p=np.array([[0, 0, 0], [0, 0, 0],
+                       [EST_BASELINE, 0, 0], [EST_BASELINE, 0, 0]]),
+        ex_q=np.tile(np.array([1.0, 0, 0, 0]), (4, 1)),
+        imu_dt=imu_dt, imu_acc=imu_acc, imu_gyr=imu_gyr, imu_n=imu_n)
+    long_book = dict(un=un, un_r=un_r, vel=np.zeros_like(un),
+                     vel_r=np.zeros_like(un), obs=obs, stereo=stereo)
+    return traj, long_state, long_book
+
+
+def long_log_gates(traj, long_state, P_out):
+    """tests/test_sequence_parallel.py's gates on a stitched trajectory:
+    (mean error, mean input error, worst step discontinuity); the gates
+    are mean error < 0.6 × the input's and discontinuity < 0.1 m."""
+    err_in = np.linalg.norm(long_state["P"] - traj["P"], axis=1).mean()
+    err_out = np.linalg.norm(P_out - traj["P"], axis=1).mean()
+    step = np.linalg.norm(np.diff(P_out, axis=0), axis=1)
+    gt_step = np.linalg.norm(np.diff(traj["P"], axis=0), axis=1)
+    jump = float(np.abs(step - gt_step).max())
+    assert err_out < 0.6 * err_in, (err_out, err_in)
+    assert jump < 0.1, jump
+    return float(err_out), float(err_in), jump
+
+
+# ---------------------------------------------------------------------------
+# a well-conditioned window problem for the batched solve
+# ---------------------------------------------------------------------------
+
+def solver_window(seed, device):
+    """One well-conditioned window in float64 on `device`: the port's
+    (state, book_img, book_evt, preints, imu_valid, prior) and g, a numpy
+    copy of tests/test_solver.build_problem (a simulated trajectory, 40
+    landmarks seen in stereo at every frame, 5 % depth noise, noisy states
+    but frame 0), preintegrated by the port."""
+    import dataclasses
+    import torch
+    from esvio_tpu_torch.core import lie
+    from esvio_tpu_torch.imu import preintegration as tpre
+    from esvio_tpu_torch.solver import gauss_newton as tgn
+    from esvio_tpu_torch.solver import window as twin
+    rng = np.random.default_rng(seed)
+    L_CAP, N_LM = 64, 40
+    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                    device=device)
+    on = lambda a: torch.as_tensor(a, device=device)
+    traj = simulate_trajectory(rng)
+    lms = np.stack([rng.uniform(-3, 3, N_LM), rng.uniform(-3, 3, N_LM),
+                    rng.uniform(3, 9, N_LM)], -1)
+    R = np.stack([quat_to_rot(q) for q in traj["Q"]])
+    p_body = np.einsum("lj,fjk->flk", lms, R) - np.einsum(
+        "fj,fjk->fk", traj["P"], R)[:, None]              # (F, L, 3)
+    un = np.zeros((L_CAP, 11, 2))
+    un_r = np.zeros((L_CAP, 11, 2))
+    un[:N_LM] = (p_body[..., :2] / p_body[..., 2:3]).transpose(1, 0, 2)
+    pr = p_body - np.array([EST_BASELINE, 0.0, 0.0])
+    un_r[:N_LM] = (pr[..., :2] / pr[..., 2:3]).transpose(1, 0, 2)
+    assert (p_body[..., 2] > 0.1).all() and (pr[..., 2] > 0.1).all()
+    live = np.arange(L_CAP) < N_LM
+    obs = np.repeat(live[:, None], 11, 1)
+    inv_depth = np.zeros(L_CAP)
+    inv_depth[:N_LM] = 1.0 / p_body[0, :, 2] * (1 + 0.05 * rng.normal(size=N_LM))
+    book = dataclasses.replace(
+        twin.empty_book(L_CAP, device, torch.float64), un=f64(un),
+        un_r=f64(un_r), obs=on(obs), stereo=on(obs),
+        inv_depth=f64(inv_depth), depth_valid=on(live), active=on(live),
+        ids=torch.arange(L_CAP, dtype=torch.int32, device=device))
+
+    k = traj["imu_per_frame"]
+    idx = np.arange(10)[:, None] * k + np.arange(k + 1)[None, :]
+    acc, gyr = traj["imu_acc"][idx], traj["imu_gyr"][idx]    # (10, k+1, 3)
+    z3 = f64(np.zeros((10, 3)))
+    preints = tpre.preintegrate_batch(
+        f64(np.full((10, k), traj["dt"])), f64(acc[:, 1:]), f64(gyr[:, 1:]),
+        f64(acc[:, 0]), f64(gyr[:, 0]), z3, z3,
+        tpre.make_imu_params(dtype=torch.float64, device=device),
+        on(np.ones((10, k), bool)))
+
+    P, V, Q = traj["P"].copy(), traj["V"].copy(), traj["Q"].copy()
+    P[1:] += rng.normal(0, 0.03, (10, 3))
+    V[1:] += rng.normal(0, 0.03, (10, 3))
+    dq = lie.quat_exp(f64(rng.normal(0, 0.005, (10, 3))))
+    Q[1:] = lie.quat_mul(f64(Q[1:]), dq).cpu().numpy()
+    ex_p = np.array([[0, 0, 0], [0, 0, 0], [EST_BASELINE, 0, 0],
+                     [EST_BASELINE, 0, 0.0]])
+    state = twin.WindowState(
+        P=f64(P), Q=f64(Q), V=f64(V), Ba=f64(np.zeros((11, 3))),
+        Bg=f64(np.zeros((11, 3))), ex_p=f64(ex_p),
+        ex_q=f64(np.tile([1.0, 0, 0, 0], (4, 1))), td=f64(0.0))
+    return ((state, twin.empty_book(8, device, torch.float64), book, preints,
+             on(np.ones(10, bool)), tgn.empty_prior(device, torch.float64)),
+            f64(traj["g"]))

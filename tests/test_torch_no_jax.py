@@ -9,7 +9,9 @@ the mono drive of tests/test_estimator.py initializes through the
 monocular fallback, every camera kind loads from its YAML file and lifts
 a pixel, the run CLI runs three ticks from an npz, a rosbag converts, the
 mono drive's estimator is checkpointed and loaded back, greedy spacing
-runs once, and chip_smoke and chip_ab import (without running).  Nothing of jax or esvio_tpu may be
+runs once, the native packetizer chunks a stream, a pinhole calibration
+and the chessboard detector run, a one-process sharded window solve runs,
+and chip_smoke and chip_ab import (without running).  Nothing of jax or esvio_tpu may be
 loaded along the way.  tests/synth_np.py, which these drives use, is held
 bit for bit against tests/synth.py on the loop sequence's smooth texture
 with IMU biases and noise."""
@@ -129,6 +131,32 @@ SCRIPT = textwrap.dedent("""
         [10.0, 12, 40, 70, 71]), torch.full((5,), 20.0),
         torch.ones(5, dtype=torch.bool), 40, 80, min_dist=5, max_keep=10)
     assert keep.tolist() == [False, True, True, False, True], keep
+    # the native packetizer, a pinhole calibration with the chessboard
+    # detector, and a one-process sharded solve (lm = 2) with its dry run
+    from esvio_tpu_torch.io import native
+    stamps, *_ = native.packetize(seq.events_left.t, seq.events_left.x,
+                                  seq.events_left.y, seq.events_left.p,
+                                  float(seq.events_left.t[0]), 15.0, 256, 4)
+    assert len(stamps) == 4
+    from esvio_tpu_torch.apps import calib, chessboard
+    from synth_np import CALIB_GT, calib_observations, render_chessboard
+    gt = CALIB_GT["pinhole"]
+    cam = camera.make_pinhole(gt["fx"], gt["fy"], gt["cx"], gt["cy"],
+                              dist=tuple(gt["dist"]), width=640, height=480,
+                              dtype=torch.float64)
+    obj, img = calib_observations(lambda pc: camera.space_to_plane(
+        cam, torch.as_tensor(pc)).numpy())
+    res = calib.calibrate_pinhole(obj, img, iters=10, device="cpu")
+    assert res["rms"] < 0.15 and abs(res["fx"] - gt["fx"]) < 1.0, res["rms"]
+    board, corners = render_chessboard(5, 7)
+    grid, ok = chessboard.find_chessboard(board, 5, 7, device="cpu")
+    assert ok and np.abs(grid - corners).max() < 1.0
+    from esvio_tpu_torch.dist import distributed_ba, dryrun, sharding
+    args = dryrun.make_problem(torch.float32, L_img=8, L_evt=16, batch=2,
+                               device="cpu")
+    costs = distributed_ba.make_sharded_solver(
+        sharding.make_mesh(dp=2, lm=2), iters=2)(*args)[3]
+    assert costs.shape == (2, 2) and torch.isfinite(costs).all()
     import chip_smoke, chip_ab
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and m.split(".")[0] in ("jax", "jaxlib", "esvio_tpu")]

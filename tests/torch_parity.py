@@ -8,7 +8,9 @@ names, so `to_torch` / `to_jax` convert field by field (recursing into
 nested states).  Converted: SAEState, EventChunk, TrackerState and
 ImageTrackerState (with their PRNG keys), FeaturePacket, WindowState,
 FeatureBook, Prior, Preintegrated, ImuParams, and CameraModel of every
-kind (`camera_to_torch`, `camera_to_jax`).
+kind (`camera_to_torch`, `camera_to_jax`); `window_args_to_torch`
+and `window_args_to_jax` convert a window solve's arguments, batched
+or not.
 """
 import contextlib
 import dataclasses
@@ -135,22 +137,41 @@ def chunk_pair(t, x, y, p, valid, device="cpu"):
             tsae.EventChunk(*(_t(a, device) for a in arrs)))
 
 
+def window_args_to_torch(jargs, device="cpu"):
+    """JAX (state, book_img, book_evt, preints, imu_valid, prior[, g]) →
+    the port's, field by field; any leading batch axes (a vmapped or
+    dp-sharded batch of windows) carry over as they are."""
+    from esvio_tpu_torch.imu import preintegration as tpre
+    from esvio_tpu_torch.solver import gauss_newton as tgn
+    from esvio_tpu_torch.solver import window as twin
+    classes = (twin.WindowState, twin.FeatureBook, twin.FeatureBook,
+               tpre.Preintegrated, None, tgn.Prior, None)
+    return tuple(_t(a, device) if cls is None else to_torch(a, cls, device)
+                 for a, cls in zip(jargs, classes))
+
+
+def window_args_to_jax(targs):
+    """The port's (state, book_img, book_evt, preints, imu_valid, prior) →
+    JAX's, with or without a leading batch axis."""
+    import jax.numpy as jnp
+    from esvio_tpu.imu import preintegration as jpre
+    from esvio_tpu.solver import gauss_newton as jgn
+    from esvio_tpu.solver import window as jwin
+    classes = (jwin.WindowState, jwin.FeatureBook, jwin.FeatureBook,
+               jpre.Preintegrated, None, jgn.Prior)
+    return tuple(jnp.asarray(a.cpu().numpy()) if c is None else to_jax(a, c)
+                 for a, c in zip(targs, classes))
+
+
 def make_problem(L_img=8, L_evt=64):
     """Deterministic sliding-window problem (`__graft_entry__._make_problem`
     in f32) in both implementations: returns (jax_args, torch_args), each
     (state, book_img, book_evt, preints, imu_valid, prior, g)."""
     import jax.numpy as jnp
     from __graft_entry__ import _make_problem
-    from esvio_tpu_torch.imu import preintegration as tpre
-    from esvio_tpu_torch.solver import gauss_newton as tgn
-    from esvio_tpu_torch.solver import window as twin
 
     jargs = _make_problem(jnp.float32, L_img=L_img, L_evt=L_evt)
-    state, bi, be, preints, iv, prior, g = jargs
-    targs = (to_torch(state, twin.WindowState), to_torch(bi, twin.FeatureBook),
-             to_torch(be, twin.FeatureBook), to_torch(preints, tpre.Preintegrated),
-             _t(iv), to_torch(prior, tgn.Prior), _t(g))
-    return jargs, targs
+    return jargs, window_args_to_torch(jargs)
 
 
 def estimator_to_torch(je, device="cpu"):
