@@ -1628,10 +1628,6 @@ def phase_esvio_loops(device):
 
 # ---------------------------------------------------------------- phase 20
 CLI_EVENT_CAPACITY = 1 << 15      # the golden pipeline's (synth_np.vio_pipeline)
-# the CLI on bench.py's 240x320 sequence runs 24 of its 36 ticks (NON_LINEAR
-# from tick 11: 13 frames against tests/test_run_cli.py's 10), to keep the
-# script's time
-CLI_BENCH_TICKS = 24
 
 
 def _cli(argv):
@@ -1708,8 +1704,7 @@ def phase_cli(device, sequence, res17, rate17):
     17's pipeline on the npz: phase 17's trajectory to the last digit.
     The CLI's pipeline with the golden's LK iteration count: phase 17's
     gates (the golden's stamps, ATE, aligned deviation).
-    (b) bench.py's 240x320 sequence (phase 5's), its first 24 ticks,
-    through the CLI:
+    (b) bench.py's 240x320 sequence (phase 5's) through the CLI:
     tests/test_run_cli.py's gates (>= 10 NON_LINEAR frames, ATE < 0.3 m,
     no restart), the result files equal to the last digit to a Pipeline
     built as the CLI builds it and run in process, K1 once per tick and K2
@@ -1786,15 +1781,12 @@ def phase_cli(device, sequence, res17, rate17):
         _, seq_b, argv_b, sub_b = inputs("bench", _sequence("bench"), **BENCH)
         rc, sum_b, launches, ticks, wall = _cli_run(
             device, argv_b + ["--seq", os.path.join(sub_b, "seq.npz"),
-                              "--out", os.path.join(sub_b, "out"),
-                              "--max-frames", str(CLI_BENCH_TICKS)],
-            "CLI 240x320")
+                              "--out", os.path.join(sub_b, "out")], "CLI 240x320")
         n_b = _cli_files(rc, sum_b, os.path.join(sub_b, "out"), "CLI 240x320")
         cfg = load_config(os.path.join(sub_b, "esvio.yaml"))
         res = Pipeline(cfg, cfg.cameras, device,
                        event_capacity=CLI_EVENT_CAPACITY).run(
-            ds.load_npz(os.path.join(sub_b, "seq.npz")),
-            max_frames=CLI_BENCH_TICKS)
+            ds.load_npz(os.path.join(sub_b, "seq.npz")))
         res.write(os.path.join(sub_b, "ref"))
         gt = np.load(os.path.join(sub_b, "gt.npz"))
         same_b = (_same_files(os.path.join(sub_b, "out"), os.path.join(sub_b, "ref"))
@@ -2051,6 +2043,11 @@ DP_B = 8
 # 8-iteration gap logged.
 DP_P_M, DP_COST_REL, DP_COST_ATOL = 1e-5, 1e-4, 1e-9
 DP_COST2_REL_F32 = 1e-3
+# The 8 well-conditioned windows also go through K2: in float32 the batched
+# solve of the 8 distinct windows is held to their 8 single solves at the
+# repo's float32 tolerance, P, V and inverse depths within 2e-3
+# (tests/test_fused_tick.py:66-67, tests/test_torch_dist_batched.py)
+DP_F32_ATOL = 2e-3
 
 
 def _launch_counts():
@@ -2060,8 +2057,9 @@ def _launch_counts():
 
 def phase_batched_solve(device):
     """solve_window_batched at bench.py's dp_batch size against 8 single
-    solve_window calls (K2 once per iteration for all 8 windows), its
-    times, then tests/test_sequence_parallel.py's long log (T = 38, 240
+    solve_window calls (K2 once per iteration for all 8 windows), 8
+    distinct windows in float64 and in float32 (K2) against their single
+    solves, its times, then tests/test_sequence_parallel.py's long log (T = 38, 240
     landmarks, 4 windows) refined as one float32 batch and stitched under
     that test's gates."""
     import numpy as np
@@ -2101,6 +2099,20 @@ def phase_batched_solve(device):
                                  *[w[0][i] for w in windows]) for i in range(6))
     dPw, relw = compare(stacked, [(b, w[0]) for b, w in enumerate(windows)],
                         windows[0][1], 8)
+    # the same distinct windows in float32, one K2 launch per iteration
+    to32 = lambda tree: win.tree_map(
+        lambda x: x.float() if x.is_floating_point() else x, tree)
+    g32 = windows[0][1].float()
+    _kernels.reset_launch_counts()
+    st_w, _, be_w, _ = gn.solve_window_batched(*map(to32, stacked), g32,
+                                               iters=8)
+    torch.cuda.synchronize()
+    launches_w = _launch_counts()["chol_solve"]
+    gap_w = 0.0
+    for b, w in enumerate(windows):
+        s1, _, b1, _ = gn.solve_window(*map(to32, w[0]), g32, iters=8)
+        gap_w = max(gap_w, *(float((x[b] - y).abs().max()) for x, y in (
+            (st_w.P, s1.P), (st_w.V, s1.V), (be_w.inv_depth, b1.inv_depth))))
     dP, rel = dp(torch.float64, 2)
     dP2, rel2 = dp(torch.float32, 2)
     dP8, rel8 = dp(torch.float32, 8)
@@ -2118,6 +2130,9 @@ def phase_batched_solve(device):
         f"windows after 8 iterations P {dPw:.3e} m, costs {relw:.3e} rel; "
         f"dp_batch's problem after 2 iterations P {dP:.3e} m, costs "
         f"{rel:.3e} rel (<= {DP_P_M} m, {DP_COST_REL} rel)")
+    log(f"  batched vs {DP_B} single solves, float32: the {DP_B} distinct "
+        f"windows after 8 iterations P, V, inverse depths {gap_w:.3e} (<= "
+        f"{DP_F32_ATOL}); K2 launches {launches_w} (8 expected)")
     log(f"  dp_batch (bench.py:213-226: L_img 64, L_evt 128, B={DP_B}, 8 "
         f"iterations, float32): batched vs {DP_B} single solves after 2 "
         f"iterations costs {rel2:.3e} rel (<= {DP_COST2_REL_F32}; P "
@@ -2131,6 +2146,9 @@ def phase_batched_solve(device):
             and rel2 <= DP_COST2_REL_F32):
         raise AssertionError(f"dp_batch: batched solve apart from the single "
                              f"solves: {(dPw, relw, dP, rel, rel2)}")
+    if gap_w > DP_F32_ATOL or launches_w != 8:
+        raise AssertionError(f"float32 windows: batched solve {gap_w} from "
+                             f"the single solves, K2 launched {launches_w}")
     if launches_b["chol_solve"] != 8:
         raise AssertionError(f"dp_batch: K2 launched {launches_b} times in one "
                              f"8-iteration batched solve")
@@ -2230,7 +2248,8 @@ def _two_process_selftest(device, multihost, sharding, dtype, tol_first,
 def phase_sharded(device):
     """dryrun_multichip's problem with lm = 4 and dp = 2 in one process on
     the card, then two processes of the multihost selftest (dp 1, lm 2) on
-    the one card, Gloo through host memory, against the one-process run."""
+    the one card (Gloo, on the card's tensors), against the one-process
+    run."""
     import numpy as np
     import torch
     from esvio_tpu_torch import _kernels

@@ -12,6 +12,13 @@ esvio_tpu/dist/distributed_ba.py).
     are solved together, one K2 launch per LM iteration, with λ and the
     accept test per window.
 
+The LM policy is the single-window solve's (gauss_newton.lm_iterate); the
+sharded solver only lays the problem out by shard and passes the sum over
+"lm".  Unlike the JAX module, which re-assembles at the accepted state and
+takes the trial cost by `problem_cost`, it carries the accepted system
+(deferred acceptance, as the single solve does): the same steps and costs
+up to rounding, one assembly per iteration.
+
 In one process (dist/sharding.make_mesh without a process group) every
 shard is a slice of a leading axis and the whole (dp, lm) batch is
 assembled in one call; across processes each rank assembles its own
@@ -24,7 +31,7 @@ import dataclasses
 import torch
 
 from esvio_tpu_torch.solver import gauss_newton as gn
-from esvio_tpu_torch.solver.window import apply_delta, tree_map
+from esvio_tpu_torch.solver.window import tree_map
 from esvio_tpu_torch.dist.sharding import Mesh
 
 
@@ -53,67 +60,31 @@ def make_sharded_solver(mesh: Mesh, iters: int = 8, cauchy_c: float = 1.0):
         return tree_map(lambda x: mesh.gather(x, "dp", 0), book)
 
     def solve(state, book_img, book_evt, preints, imu_valid, prior, g):
-        dtype, dev = state.P.dtype, state.P.device
-        state = tree_map(lambda x: x[ds], state)
-        bi, be = shard_book(book_img), shard_book(book_evt)
+        dev = state.P.device
         n_lm = ls.stop - ls.start
-        shards = lambda x: x[ds][:, None].expand(
-            (x[ds].shape[0], n_lm) + x.shape[1:])
-        on_shard = lambda x: x[:, None].expand((x.shape[0], n_lm) + x.shape[1:])
-        # IMU and prior on shard 0 only
+        on_shard = lambda x: x.expand((x.shape[0], n_lm) + x.shape[2:])
+        local = lambda x: x[ds][:, None]          # (dp_local, 1, ...)
+        # the state with a unit shard axis; books, IMU and prior per shard,
+        # the IMU and prior on shard 0 only
+        state = tree_map(local, state)
+        bi, be = shard_book(book_img), shard_book(book_evt)
         first = torch.arange(ls.start, ls.stop, device=dev) == 0
-        pre_s = tree_map(shards, preints)
-        iv_s = shards(imu_valid) & first[None, :, None]
-        prior_s = tree_map(shards, prior)
+        pre_s = tree_map(lambda x: on_shard(local(x)), preints)
+        iv_s = on_shard(local(imu_valid)) & first[None, :, None]
+        prior_s = tree_map(lambda x: on_shard(local(x)), prior)
         prior_s = dataclasses.replace(prior_s, valid=prior_s.valid & first)
 
-        lam0, lam_floor = gn.damping_schedule(dtype)
-        lam = torch.full(state.td.shape, lam0, dtype=dtype, device=dev)
-        costs = []
-        for _ in range(iters):
-            Hpp_r, Hpl_r, hll_r, bp_r, bl_r, cost2 = gn.assemble_normal_reduced(
-                tree_map(on_shard, state), bi, be, pre_s, iv_s, prior_s, g,
+        def assemble(st, bi_, be_):
+            return gn.assemble_normal_reduced(
+                tree_map(on_shard, st), bi_, be_, pre_s, iv_s, prior_s, g,
                 cauchy_c)
-            col_p = torch.sqrt(mesh.sum_lm(
-                torch.diagonal(Hpp_r, dim1=-2, dim2=-1)))[:, None]
-            col_l = torch.sqrt(hll_r)
-            act_p, act_l = col_p > 1e-10, col_l > 1e-10
-            dp_i = torch.where(act_p, 1.0 / torch.where(
-                act_p, col_p, torch.ones_like(col_p)), torch.zeros_like(col_p))
-            dl_i = torch.where(act_l, 1.0 / torch.where(
-                act_l, col_l, torch.ones_like(col_l)), torch.zeros_like(col_l))
-            Hpp = Hpp_r * dp_i[..., None, :] * dp_i[..., :, None]
-            Hpl = Hpl_r * dp_i[..., :, None] * dl_i[..., None, :]
-            hll = hll_r * dl_i * dl_i
-            bp = bp_r * dp_i
-            bl = bl_r * dl_i
-            active_lm = hll > 0.5
-            inv_hll = torch.where(active_lm, 1.0 / torch.where(
-                active_lm, hll, torch.ones_like(hll)), torch.zeros_like(hll))
 
-            Hr = mesh.sum_lm(Hpp - (Hpl * inv_hll[..., None, :]) @ Hpl.mT)
-            br = mesh.sum_lm(bp - gn._mv(Hpl, bl * inv_hll))
-            # the dp reduced systems in one solve (one K2 launch)
-            dxp_s, finite = gn.reduced_solve(Hr, br, lam)
-            dlam_s = -(bl + gn._mv(Hpl.mT, dxp_s[:, None])) * inv_hll \
-                * finite.to(dtype)[:, None, None]
-            dxp = dxp_s * dp_i[:, 0]
-            st_new = apply_delta(state, dxp)
-            bi_new, be_new = gn._with_depths(bi, be, dlam_s * dl_i)
-
-            c_old = mesh.sum_lm(0.5 * cost2)
-            c_new = mesh.sum_lm(gn.problem_cost(
-                tree_map(on_shard, st_new), bi_new, be_new, pre_s, iv_s,
-                prior_s, g, cauchy_c))
-            accept = c_new < c_old
-            state = gn._select(accept, state, st_new)
-            bi = gn._select(accept[:, None], bi, bi_new)
-            be = gn._select(accept[:, None], be, be_new)
-            lam = torch.where(accept, torch.clamp(lam / 10.0, min=lam_floor),
-                              torch.clamp(lam * 100.0, max=1e4))
-            costs.append(c_new)
-        state = tree_map(lambda x: mesh.gather(x, "dp", 0), state)
-        costs = mesh.gather(torch.stack(costs, -1), "dp", 0)
+        # the dp reduced systems of an iteration in one solve (one K2
+        # launch); λ and the accept test per window
+        state, bi, be, costs = gn.lm_iterate(state, bi, be, assemble, iters,
+                                             reduce=mesh.sum_lm)
+        state = tree_map(lambda x: mesh.gather(x[:, 0], "dp", 0), state)
+        costs = mesh.gather(costs[:, 0], "dp", 0)
         return state, unshard_book(bi), unshard_book(be), costs
 
     return solve

@@ -14,8 +14,8 @@ Launch one process per GPU, same command everywhere:
 
 or under torchrun (`initialize()` reads its environment).  The backend is
 NCCL when each local rank owns its own GPU, else Gloo (on the CPU, and for
-several ranks on one GPU, which NCCL refuses); Gloo takes CUDA tensors
-through host memory (dist/sharding.Mesh).  In one process `initialize` is a
+several ranks on one GPU, which NCCL refuses); Gloo's all-reduce and
+all-gather take the CUDA tensors as they are.  In one process `initialize` is a
 no-op and the mesh is the one-device layout, so the same code runs
 everywhere.
 """
@@ -91,9 +91,10 @@ def selftest(mesh: Mesh = None, device="cuda", dtype=torch.float32):
     args = make_problem(dtype, L_img=8, L_evt=8 * lm, batch=dp,
                         device=device)
     costs = make_sharded_solver(mesh, iters=4)(*args)[3].cpu().numpy()
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    print(json.dumps({"rank": rank, "mesh": mesh.shape,
-                      "backend": mesh.backend, "costs": costs.tolist()}),
+    up = dist.is_initialized()
+    print(json.dumps({"rank": dist.get_rank() if up else 0, "mesh": mesh.shape,
+                      "backend": dist.get_backend() if up else None,
+                      "costs": costs.tolist()}),
           flush=True)
     return costs
 

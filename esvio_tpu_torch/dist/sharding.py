@@ -31,7 +31,6 @@ class Mesh:
     dp: int
     lm: int
     device_mesh: Optional[object] = None   # DeviceMesh when multi-process
-    backend: Optional[str] = None
 
     @property
     def shape(self) -> dict:
@@ -55,24 +54,15 @@ class Mesh:
     def _group(self, axis: str):
         return self.device_mesh.get_group(axis)
 
-    def _collective(self, x, fn):
-        """Run fn on x; Gloo takes the CUDA tensor through host memory."""
-        if self.backend == "gloo" and x.is_cuda:
-            return fn(x.cpu()).to(x.device)
-        return fn(x)
-
     def sum_lm(self, x):
-        """x (dp_local, lm_local, ...) summed over "lm" → (dp_local, ...)."""
+        """x (dp_local, lm_local, ...) summed over "lm" → (dp_local, 1,
+        ...)."""
         if self.device_mesh is None:
-            return x.sum(1)
+            return x.sum(1, keepdim=True)
         import torch.distributed as dist
-
-        def reduce(t):
-            t = t.contiguous()
-            dist.all_reduce(t, group=self._group("lm"))
-            return t
-
-        return self._collective(x[:, 0], reduce)
+        t = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=self._group("lm"))
+        return t
 
     def gather(self, x, axis: str, dim: int):
         """Concatenate every process's x along `dim` over mesh axis `axis`
@@ -80,14 +70,9 @@ class Mesh:
         if self.device_mesh is None or self.shape[axis] == 1:
             return x
         import torch.distributed as dist
-        group = self._group(axis)
-
-        def gather(t):
-            parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
-            dist.all_gather(parts, t.contiguous(), group=group)
-            return torch.cat(parts, dim)
-
-        return self._collective(x, gather)
+        parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, x.contiguous(), group=self._group(axis))
+        return torch.cat(parts, dim)
 
 
 def make_mesh(dp: int = 1, lm: int = 1) -> Mesh:
@@ -100,8 +85,7 @@ def make_mesh(dp: int = 1, lm: int = 1) -> Mesh:
     world = dist.get_world_size()
     assert dp * lm == world, f"mesh dp={dp} lm={lm} needs {dp * lm} ranks, " \
         f"the group has {world}"
-    backend = dist.get_backend()
-    dm = DeviceMesh("cuda" if backend == "nccl" else "cpu",
+    dm = DeviceMesh("cuda" if dist.get_backend() == "nccl" else "cpu",
                     torch.arange(world).reshape(dp, lm),
                     mesh_dim_names=("dp", "lm"))
-    return Mesh(dp, lm, dm, backend)
+    return Mesh(dp, lm, dm)

@@ -194,30 +194,45 @@ def iterate_chunks(stream: EventStream, freq: float, capacity: int, device,
             break
 
 
+# events the native packetizer packs per call (iterate_chunks_fast): host
+# memory stays at a few blocks of this size, whatever the stream's length
+NATIVE_BLOCK_EVENTS = 1 << 20
+
+
 def iterate_chunks_fast(stream: EventStream, freq: float, capacity: int,
                         device, t_start=None, t_end=None
                         ) -> Iterator[Tuple[float, EventChunk]]:
-    """`iterate_chunks` through the native packetizer (io/native.py): one
-    call packs the whole stream into padded frame arrays on the host, then
-    each tick's chunk is copied to `device`.  Yields the same
-    (stamp, EventChunk) sequence."""
+    """`iterate_chunks` through the native packetizer (io/native.py): each
+    call packs a block of ticks (NATIVE_BLOCK_EVENTS // capacity of them,
+    at least one) into padded arrays on the host, then each tick's chunk is
+    copied to `device`.  A block starts at the last one's final edge, which
+    the packetizer accumulates as `iterate_chunks` does, so the blocks
+    yield the same (stamp, EventChunk) sequence as one call."""
     from esvio_tpu_torch.io import native
     t = np.ascontiguousarray(stream.t, np.float64)
     if len(t) == 0 or freq <= 0:
         return
+    x, y, p = (np.ascontiguousarray(a, np.int32)
+               for a in (stream.x, stream.y, stream.p))
     t0 = float(t[0] if t_start is None else t_start)
     t1 = float(t[-1] if t_end is None else t_end)
     dt = 1.0 / freq
     n_frames = max(len(np.arange(t0, t1 + dt, dt)) - 1, 0)
-    stamps, ts, xs, ys, ps, vs = native.packetize(
-        t, stream.x, stream.y, stream.p, t0, freq, capacity, n_frames)
-    for k in range(len(stamps)):
-        m = int(vs[k].sum())
-        if m == 0:
-            continue   # an empty tick is no chunk (see iterate_chunks)
-        to = lambda a: torch.tensor(a[k], device=device)
-        yield float(stamps[k]), EventChunk(t=to(ts), x=to(xs), y=to(ys),
-                                           p=to(ps), valid=to(vs), n_host=m)
+    block = max(1, NATIVE_BLOCK_EVENTS // capacity)
+    while n_frames > 0:
+        stamps, ts, xs, ys, ps, vs = native.packetize(
+            t, x, y, p, t0, freq, capacity, min(block, n_frames))
+        for k in range(len(stamps)):
+            m = int(vs[k].sum())
+            if m == 0:
+                continue   # an empty tick is no chunk (see iterate_chunks)
+            to = lambda a: torch.tensor(a[k], device=device)
+            yield float(stamps[k]), EventChunk(t=to(ts), x=to(xs), y=to(ys),
+                                               p=to(ps), valid=to(vs), n_host=m)
+        if len(stamps) < min(block, n_frames):
+            return                       # the stream ended inside the block
+        n_frames -= len(stamps)
+        t0 = float(stamps[-1])
 
 
 def imu_between(imu: ImuStream, t0: float, t1: float):

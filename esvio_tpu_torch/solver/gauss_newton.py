@@ -90,6 +90,10 @@ def _mv(A, v):
     return A @ v if v.dim() == 1 else (A @ v[..., None])[..., 0]
 
 
+def _same(x):
+    return x
+
+
 def _sum_last(x, k):
     """Sum over the last k axes."""
     return torch.sum(x, dim=tuple(range(-k, 0)))
@@ -360,28 +364,26 @@ def _select(accept, old, new):
         for f in dataclasses.fields(old)})
 
 
-def _lm_proposal(sys_acc, lam_damp, frozen):
+def _lm_proposal(sys_acc, lam_damp, frozen, reduce=None):
     """One LM step proposed from the accepted normal equations (Hpp, Hpl,
     hll, bp, bl, cost): Ceres-style Jacobi column scaling, Schur
     elimination of the diagonal landmark block, the damped reduced solve.
-    frozen: optional bool rows of Hpp held constant.  Returns (dxp, dlam)
-    unscaled."""
+    frozen: optional bool rows of Hpp held constant.  reduce: optional sum
+    over landmark shards, keeping a unit shard axis (see `lm_iterate`), of
+    the pose columns' squared norms and of the reduced system.  Returns
+    (dxp, dlam) unscaled."""
     Hpp_r, Hpl_r, hll_r, bp_r, bl_r, _ = sys_acc
+    red = reduce or _same
     dtype = Hpp_r.dtype
     n = Hpp_r.shape[-1]
-    col_norm = torch.sqrt(torch.cat(
-        [torch.diagonal(Hpp_r, dim1=-2, dim2=-1), hll_r], -1))
-    active_col = col_norm > 1e-10
+    col_p = torch.sqrt(red(torch.diagonal(Hpp_r, dim1=-2, dim2=-1)))
+    col_l = torch.sqrt(hll_r)
+    act_p, act_l = col_p > 1e-10, col_l > 1e-10
     if frozen is not None:
-        active_col = active_col & ~torch.cat(
-            [frozen, torch.zeros(col_norm.shape[-1] - frozen.shape[-1],
-                                 dtype=torch.bool, device=frozen.device)])
-    d_inv = torch.where(active_col,
-                        1.0 / torch.where(active_col, col_norm,
-                                          torch.ones_like(col_norm)),
-                        torch.zeros_like(col_norm))
-    dp_i = d_inv[..., :n]
-    dl_i = d_inv[..., n:]
+        act_p = act_p & ~torch.cat([frozen, frozen.new_zeros(n - frozen.shape[-1])])
+    inv = lambda c, act: torch.where(
+        act, 1.0 / torch.where(act, c, torch.ones_like(c)), torch.zeros_like(c))
+    dp_i, dl_i = inv(col_p, act_p), inv(col_l, act_l)
     Hpp = Hpp_r * dp_i[..., None, :] * dp_i[..., :, None]
     Hpl = Hpl_r * dp_i[..., :, None] * dl_i[..., None, :]
     hll = hll_r * dl_i * dl_i
@@ -389,11 +391,9 @@ def _lm_proposal(sys_acc, lam_damp, frozen):
     bl = bl_r * dl_i
 
     active_lm = hll > 0.5
-    inv_hll = torch.where(active_lm,
-                          1.0 / torch.where(active_lm, hll, torch.ones_like(hll)),
-                          torch.zeros_like(hll))
-    Hr = Hpp - (Hpl * inv_hll[..., None, :]) @ Hpl.mT
-    br = bp - _mv(Hpl, bl * inv_hll)
+    inv_hll = inv(hll, active_lm)
+    Hr = red(Hpp - (Hpl * inv_hll[..., None, :]) @ Hpl.mT)
+    br = red(bp - _mv(Hpl, bl * inv_hll))
 
     dxp_s, finite = reduced_solve(Hr, br, lam_damp)
     dlam_s = -(bl + _mv(Hpl.mT, dxp_s)) * inv_hll * finite.to(dtype)[..., None]
@@ -446,22 +446,40 @@ def solve_window(state: WindowState, book_img: FeatureBook,
                                        cauchy_c, prior_H=prior_H0,
                                        imu_sqrt=imu_sqrt0)
 
+    return lm_iterate(state, book_img, book_evt, assemble, iters, frozen)
+
+
+def lm_iterate(state: WindowState, book_img: FeatureBook,
+               book_evt: FeatureBook, assemble, iters: int,
+               frozen: Optional[torch.Tensor] = None, reduce=None):
+    """The deferred-acceptance LM loop of `solve_window` on the system that
+    assemble(state, book_img, book_evt) builds → (state', book_img',
+    book_evt', costs (*lead, iters)).
+
+    reduce: None for whole windows.  The landmark-sharded solver
+    (dist/distributed_ba.py) passes books sharded along an axis after the
+    state's leading ones, on which the state has a unit axis, and the sum
+    over that shard axis (keeping it): it is taken of the pose columns'
+    squared norms, of the reduced system and of the costs, so that every
+    shard takes the same step and the same accept decision."""
+    red = reduce or _same
     sys_acc = assemble(state, book_img, book_evt)
-    lam0, lam_floor = damping_schedule(dtype)
-    lam_damp = torch.full(state.td.shape, lam0, dtype=dtype,
+    lam0, lam_floor = damping_schedule(state.P.dtype)
+    lam_damp = torch.full(state.td.shape, lam0, dtype=state.P.dtype,
                           device=state.P.device)
     costs = []
     for _ in range(iters):
-        dxp, dlam = _lm_proposal(sys_acc, lam_damp, frozen)
+        dxp, dlam = _lm_proposal(sys_acc, lam_damp, frozen, reduce)
         st_new = apply_delta(state, dxp)
         bi_new, be_new = _with_depths(book_img, book_evt, dlam)
         sys_new = assemble(st_new, bi_new, be_new)
-        accept = 0.5 * sys_new[5] < 0.5 * sys_acc[5]
+        cost = red(0.5 * sys_new[5])
+        accept = cost < red(0.5 * sys_acc[5])
         state = _select(accept, state, st_new)
         book_img, book_evt, sys_acc, lam_damp = _lm_accept(
             accept, book_img, book_evt, bi_new, be_new, sys_acc, sys_new,
             lam_damp, lam_floor)
-        costs.append(0.5 * sys_new[5])
+        costs.append(cost)
     return state, book_img, book_evt, torch.stack(costs, -1)
 
 

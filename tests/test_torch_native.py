@@ -75,6 +75,29 @@ def test_iterate_chunks_fast_matches_numpy(n, freq, capacity, t_start):
             assert a.dtype == b.dtype and torch.equal(a, b), f
 
 
+@pytest.mark.parametrize("ticks_per_block", [1, 3, 7])
+def test_iterate_chunks_fast_in_blocks_matches_numpy(monkeypatch,
+                                                     ticks_per_block):
+    """Packed a few ticks per packetizer call, the native chunks still equal
+    the numpy ones: each block continues the last one's edge, and the
+    stream may end inside a block or on its boundary."""
+    from esvio_tpu_torch.io import datasets as ds
+    capacity = 128
+    monkeypatch.setattr(ds, "NATIVE_BLOCK_EVENTS", capacity * ticks_per_block)
+    rng = np.random.default_rng(ticks_per_block)
+    stream = ds.EventStream(*_stream(rng, 3000, 1.0, 2.0, 160, 120))
+    for t_end in (None, 2.7):
+        fast = list(ds.iterate_chunks_fast(stream, 21.0, capacity, "cpu",
+                                           t_end=t_end))
+        ref = list(ds.iterate_chunks(stream, 21.0, capacity, "cpu",
+                                     t_end=t_end))
+        assert len(fast) == len(ref) == 21
+        for (sf, cf), (sr, cr) in zip(fast, ref):
+            assert sf == sr and cf.n_host == cr.n_host
+            for f in ("t", "x", "y", "p", "valid"):
+                assert torch.equal(getattr(cf, f), getattr(cr, f)), f
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
     """A packetizer that does not build raises; nothing falls back."""
     from esvio_tpu_torch import _kernels
