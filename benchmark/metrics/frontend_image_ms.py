@@ -1,0 +1,10 @@
+"""image front end: the StageTimer range `frontend_image`, from its start to the card
+synchronisation that closes it, summed over the traced slice and divided
+by its ticks (ms per tick)."""
+
+LAYER = "image front end"
+UNIT = "ms"
+
+
+def read(s):
+    return s.stage_ms_per_tick("frontend_image")
