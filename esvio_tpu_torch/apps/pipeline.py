@@ -14,6 +14,14 @@ chunks (`do_motion_correction`), loop closure with the 4-DoF pose graph
 (`loop_closure`, the loop-corrected trajectory in P_loop/Q_loop) and fast
 relocalization (`fast_relocalization`: every closed loop is fed back
 through the estimator's in-window relo solve).
+
+`Pipeline(..., trace=True)` turns on the per-tick record
+(utils/metrics.py): `PipelineResult.ticks` holds one line per tick, its
+spans (`tick`, `ingest`, the four stages and their `<stage>.<step>`
+sub-spans), the `pose` instant and its counts (host fetches, LK
+iterations, spacing sweeps, events offered and kept, kernel launches,
+graph captures and replays, lanes dropped, loops closed, pose-graph
+solves) and fields (keyframe, marginalization, solver flag, tracked).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 import esvio_tpu_torch
+from esvio_tpu_torch import _kernels
 from esvio_tpu_torch.events.motion import motion_correct_chunk
 from esvio_tpu_torch.frontend import tracker as trk
 from esvio_tpu_torch.imu.preintegration import make_imu_params
@@ -34,7 +43,7 @@ from esvio_tpu_torch.io import trajectory as traj_io
 from esvio_tpu_torch.io.config import SystemConfig, extrinsic_arrays
 from esvio_tpu_torch.loop.loop_closure import LoopCloser
 from esvio_tpu_torch.utils import viz
-from esvio_tpu_torch.utils.metrics import Metrics, StageTimer
+from esvio_tpu_torch.utils.metrics import Metrics, StageTimer, count, span, to_host
 from esvio_tpu_torch.vio import estimator as est_mod
 
 
@@ -57,6 +66,8 @@ class PipelineResult:
     P_hf: Optional[List[np.ndarray]] = None
     Q_hf: Optional[List[np.ndarray]] = None
     V_hf: Optional[List[np.ndarray]] = None
+    # the per-tick record's lines (Pipeline(trace=True)), one per tick
+    ticks: Optional[List[dict]] = None
 
     def ate(self, gt_t, gt_P, alignment="yaw"):
         return traj_io.ate_rmse(np.asarray(self.stamps), np.asarray(self.P),
@@ -92,6 +103,8 @@ def _sync_pairs(it_l, it_r, tol):
 
 
 _GRAY = (0.299, 0.587, 0.114)
+_MARG_NAMES = {est_mod.MARGIN_OLD: "MARGIN_OLD",
+               est_mod.MARGIN_SECOND_NEW: "MARGIN_SECOND_NEW"}
 
 
 def prep_frame(frame, height: int, width: int, device):
@@ -118,7 +131,7 @@ class Pipeline:
                  event_capacity: int = 1 << 16,
                  img_tracker_cfg: Optional[trk.TrackerConfig] = None,
                  dump_viz_dir: Optional[str] = None,
-                 dump_viz_every: int = 10):
+                 dump_viz_every: int = 10, trace: bool = False):
         if sys_cfg.system_mode not in (0, 1):
             raise NotImplementedError(
                 f"system_mode {sys_cfg.system_mode} is not a pipeline mode")
@@ -156,6 +169,7 @@ class Pipeline:
         # tick writes time-surface + tracking-overlay PNGs (utils/viz.py)
         self.dump_viz_dir = dump_viz_dir
         self.dump_viz_every = dump_viz_every
+        self.trace = trace   # the per-tick record (utils/metrics.py)
         self._tick = 0
         self.loop_closer = None
         self.sequence = 0   # incremented on restart (new_sequence analog)
@@ -214,18 +228,22 @@ class Pipeline:
         after its own front end.  `chunk_pairs`, an iterable of
         ((t_l, chunk_l), (t_r, chunk_r)), replaces the chunking and pairing
         of the sequence's events; the watchdog restarts on a gap over 1 s
-        or time going backwards."""
-        cfg = self.sys_cfg
-        freq = freq or cfg.freq
+        or time going backwards.  With `trace`, the result's `ticks` holds
+        the per-tick record."""
+        freq = freq or self.sys_cfg.freq
         res = PipelineResult([], [], [], [])
-        tim = StageTimer(self.device)
-        met = Metrics()
-        cam_el = self.cams["event0"]
-        cam_er = self.cams["event1"]
-        self._img_idx = 0
-        prev_t = None
-        n = 0
-        pending = None
+        met = Metrics(record=self.trace)
+        tim = StageTimer(self.device, met if self.trace else None)
+        if self.trace:
+            graphs = lambda: self.estimator._graphs
+            met.watch(
+                k1_launches=lambda: _kernels.CORNER_MASK.launches,
+                k2_launches=lambda: _kernels.CHOL_SOLVE.launches,
+                graph_captures=lambda: graphs().n_captures if graphs() else 0,
+                graph_replays=lambda: graphs().n_replays if graphs() else 0,
+                lanes_dropped=lambda: self.estimator.lanes_dropped,
+                pose_graph_solves=lambda: self.loop_closer.n_optimize
+                if self.loop_closer is not None else 0)
         if chunk_pairs is None:
             # ingestion through the native packetizer (io/native.py)
             chunk_pairs = _sync_pairs(
@@ -234,8 +252,36 @@ class Pipeline:
                 ds.iterate_chunks_fast(seq.events_right, freq,
                                        self.event_capacity, self.device),
                 0.5 / freq)
-        for (t_l, ch_l), (t_r, ch_r) in chunk_pairs:
+        with met.recording():
+            self._run_ticks(seq, freq, max_frames, overlap, iter(chunk_pairs),
+                            res, tim, met)
+        if self.loop_closer is not None:
+            if self._pending_kf is not None:
+                self._commit_keyframe(res, met)
+            self.loop_closer.flush()   # run any cadence-pending 4-DoF solve
+            self._rebuild_loop_path(res)
+        res.metrics = met.summary()
+        res.stage_times = tim.report()
+        res.ticks = met.ticks
+        return res
+
+    def _run_ticks(self, seq, freq, max_frames, overlap, pairs, res, tim, met):
+        """The tick loop of `run` over the chunk pair iterator `pairs`."""
+        cfg = self.sys_cfg
+        cam_el = self.cams["event0"]
+        cam_er = self.cams["event1"]
+        self._img_idx = 0
+        prev_t = None
+        n = 0
+        pending = None
+        while True:
+            with span("ingest"):
+                pair = next(pairs, None)
+            if pair is None:
+                break
+            (t_l, ch_l), (t_r, ch_r) = pair
             t = t_l
+            key = met.begin_tick(t)
             # stream watchdog: gap > 1 s or time going backwards → restart
             if self._last_event_time is not None and \
                     (t - self._last_event_time > 1.0
@@ -252,9 +298,12 @@ class Pipeline:
             self._last_event_time = t
             # the chunker's host-side counts; a caller's chunk without one
             # is counted on the device
-            met.count("events", sum(
-                float(ch.n_host if ch.n_host is not None else ch.valid.sum())
-                for ch in (ch_l, ch_r)))
+            kept = [ch.n_host if ch.n_host is not None
+                    else int(to_host(ch.valid.sum())) for ch in (ch_l, ch_r)]
+            met.count("events", float(sum(kept)))
+            if key is not None:
+                met.tick_fields(key, events_kept=kept, events_offered=[
+                    ch.n_offered for ch in (ch_l, ch_r)])
 
             # IMU-aided motion compensation (Do_motion_correction) with the
             # mean IMU sample of the last 1/freq s
@@ -269,12 +318,12 @@ class Pipeline:
                         height=cfg.event_height)
                         for ch, cc in ((ch_l, cam_el), (ch_r, cam_er)))
 
-            with tim("frontend_event"):
+            with tim("frontend_event", key):
                 self.tracker_state, pkt_evt = trk.track_event_stereo(
                     self.tracker_cfg, cam_el, cam_er, self.tracker_state,
                     ch_l, ch_r, t)
-            pkt_img = self._image_frontend(seq, t, tim)
-            stage = (prev_t, t, pkt_evt, pkt_img, self._img_idx)
+            pkt_img = self._image_frontend(seq, t, tim, key)
+            stage = (prev_t, t, pkt_evt, pkt_img, self._img_idx, key)
             if overlap:
                 if pending is not None:
                     self._estimator_stage(pending, seq, res, tim, met)
@@ -287,14 +336,6 @@ class Pipeline:
                 break
         if pending is not None:
             self._estimator_stage(pending, seq, res, tim, met)
-        if self.loop_closer is not None:
-            if self._pending_kf is not None:
-                self._commit_keyframe(res, met)
-            self.loop_closer.flush()   # run any cadence-pending 4-DoF solve
-            self._rebuild_loop_path(res)
-        res.metrics = met.summary()
-        res.stage_times = tim.report()
-        return res
 
     def _commit_keyframe(self, res, met):
         """Commit the pending loop keyframe; returns the loop info when it
@@ -303,6 +344,7 @@ class Pipeline:
         self._pending_kf = None
         if info is not None:
             met.count("loops")
+            count("loops_closed")
             res.n_loops += 1
         return info
 
@@ -325,7 +367,7 @@ class Pipeline:
                 res.P_loop[k], res.Q_loop[k] = lc.correct_odometry(res.P[k],
                                                                    res.Q[k])
 
-    def _image_frontend(self, seq, t, tim):
+    def _image_frontend(self, seq, t, tim, key=None):
         """Pair the tick with the latest frame ≤ t and track it
         (sync_process semantics): each frame is consumed once and stamped
         with its own time.  None when the tick brings no new frame."""
@@ -340,10 +382,12 @@ class Pipeline:
             return None
         self._last_img_idx = k = self._img_idx
         cfg = self.img_tracker_cfg
-        with tim("frontend_image"):
-            frame_l = prep_frame(imgs[1][k], cfg.height, cfg.width, self.device)
-            frame_r = prep_frame(seq.images_right[1][k], cfg.height, cfg.width,
-                                 self.device)
+        with tim("frontend_image", key):
+            with span("frontend_image.prep"):
+                frame_l = prep_frame(imgs[1][k], cfg.height, cfg.width,
+                                     self.device)
+                frame_r = prep_frame(seq.images_right[1][k], cfg.height,
+                                     cfg.width, self.device)
             self.img_tracker_state, pkt_img = trk.track_image_stereo(
                 cfg, self.cams["cam0"], self.cams["cam1"],
                 self.img_tracker_state, frame_l, frame_r, float(stamps[k]))
@@ -353,7 +397,7 @@ class Pipeline:
         """Back end for one tick: IMU feed + IMU-rate prediction, window
         solve, loop closure, output recording."""
         cfg = self.sys_cfg
-        prev_t, t, pkt_evt, pkt_img, img_idx = stage
+        prev_t, t, pkt_evt, pkt_img, img_idx, key = stage
         if prev_t is not None and seq.imu is not None:
             ts, accs, gyrs = ds.imu_between(seq.imu, prev_t, t)
             if len(ts):
@@ -366,8 +410,9 @@ class Pipeline:
                     res.P_hf.extend(P_hf)
                     res.Q_hf.extend(Q_hf)
                     res.V_hf.extend(V_hf)
-        with tim("estimator"):
+        with tim("estimator", key):
             out = self.estimator.process_packets(t, pkt_evt, pkt_img)
+        met.mark(key, "pose")
         self.estimator.update_latest()
 
         # ---- loop closure (pose_graph node analog) -------------------------
@@ -375,7 +420,7 @@ class Pipeline:
         # the host overlapped the tick in between
         lc = self.loop_closer
         if lc is not None and self._pending_kf is not None:
-            with tim("loop_closure"):
+            with tim("loop_closure", key), span("loop_closure.commit"):
                 info = self._commit_keyframe(res, met)
             if info is not None and cfg.fast_relocalization:
                 self.estimator.set_relo_frame(
@@ -392,7 +437,7 @@ class Pipeline:
                                       icfg.width, self.device)
             else:
                 loop_img = self.tracker_state.prev_pyr[0][0]
-            with tim("loop_closure"):
+            with tim("loop_closure", key), span("loop_closure.begin"):
                 self._pending_kf = lc.begin_keyframe(
                     kf["stamp"], kf["P"], kf["Q"], kf["pts_w"], kf["un"],
                     np.ones(len(kf["un"]), bool), loop_img, ids=kf["ids"],
@@ -406,9 +451,6 @@ class Pipeline:
         met.count("ticks")
         if out.n_tracked is not None:
             met.observe("tracked_features", float(out.n_tracked))
-        met.gauge("lanes_dropped", float(self.estimator.lanes_dropped))
-        met.gauge("solver_flag_nonlinear",
-                  1.0 if out.solver_flag == "NON_LINEAR" else 0.0)
         self._tick += 1
         if self.dump_viz_dir and self._tick % self.dump_viz_every == 0:
             viz.dump_tick(self.dump_viz_dir, self._tick,
@@ -426,3 +468,7 @@ class Pipeline:
                 t_c, q_c = lc.correct_odometry(out.P, out.Q)
                 res.P_loop.append(t_c)
                 res.Q_loop.append(q_c)
+        if key is not None:
+            met.end_tick(key, keyframe=out.marg_flag == est_mod.MARGIN_OLD,
+                         marg=_MARG_NAMES[out.marg_flag],
+                         solver_flag=out.solver_flag, tracked=out.n_tracked)

@@ -3,7 +3,7 @@ esvio_tpu/apps/run.py).
 
     python -m esvio_tpu_torch.apps.run --config <esvio.yaml> --seq <sequence> \
         [--gt gt.txt|.npz] [--out outdir] [--max-frames N] [--freq HZ] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--trace-out ticks.jsonl]
 
 `--config` reads the reference's YAML configs unchanged (io/config.py);
 `--seq` accepts:
@@ -16,6 +16,9 @@ The pipeline runs on `--device` (default: the card; without one that
 raises).  Outputs the reference trajectory files (esvio_result_no_loop.csv,
 esvio_result_loop.txt — visualization.cpp:185-200, pose_graph.cpp:635-652)
 plus a one-line JSON summary with ATE when ground truth is available.
+`--trace-out` turns on the pipeline's per-tick record and writes its lines
+(one JSON line per tick: spans on the Unix ns clock, host fetches, LK
+iterations, events offered and kept, keyframes, loops) when the run ends.
 
 Convert-only mode (events_repacking_helper analog):
     python -m esvio_tpu_torch.apps.run --convert seq.bag --config c.yaml --out d.npz
@@ -78,6 +81,8 @@ def main(argv=None):
     ap.add_argument("--load-pose-graph", default=None)
     ap.add_argument("--device", default="cuda",
                     help="device of the pipeline (default: the card)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the per-tick record as JSON lines to PATH")
     args = ap.parse_args(argv)
 
     from esvio_tpu_torch.io.config import load_config
@@ -98,7 +103,8 @@ def main(argv=None):
 
     from esvio_tpu_torch.apps.pipeline import Pipeline
     pipe = Pipeline(cfg, cfg.cameras, args.device,
-                    event_capacity=args.event_capacity)
+                    event_capacity=args.event_capacity,
+                    trace=args.trace_out is not None)
     if args.load_pose_graph:
         pipe.load_pose_graph(args.load_pose_graph)
     res = pipe.run(seq, freq=args.freq, max_frames=args.max_frames)
@@ -107,6 +113,10 @@ def main(argv=None):
     res.write(out_dir)
     if args.save_pose_graph:
         pipe.save_pose_graph(args.save_pose_graph)
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            for line in res.ticks:
+                f.write(json.dumps(line) + "\n")
 
     summary = {
         "config": args.config, "seq": args.seq,

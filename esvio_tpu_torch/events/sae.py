@@ -30,7 +30,8 @@ class EventChunk:
 
     t (E,) float32 seconds, x/y (E,) int32 column/row, p (E,) int32
     polarity in {0, 1}, valid (E,) bool.  `n_host` is the host-side event
-    count (metrics only)."""
+    count, `n_offered` the events the stream had in the tick, of which the
+    chunk keeps the latest `n_host` (metrics only)."""
 
     t: torch.Tensor
     x: torch.Tensor
@@ -38,6 +39,7 @@ class EventChunk:
     p: torch.Tensor
     valid: torch.Tensor
     n_host: Optional[int] = None
+    n_offered: Optional[int] = None
 
 
 @dataclasses.dataclass

@@ -10,11 +10,15 @@ is two small batched matmuls against separable hat-function weights.
 
 The JAX version stops its GN loop when every lane has converged; a
 converged lane never moves again, so stopping there or later gives the same
-result.  Here the loop checks convergence on the host every iteration.
+result.  Here the loop checks convergence on the host every iteration (a
+counted host fetch); the per-tick record counts the calls of one level's
+loop (`lk_calls`) and the iterations it ran (`lk_iters`).
 """
 from __future__ import annotations
 
 import torch
+
+from esvio_tpu_torch.utils.metrics import count, to_host
 
 WIN = 21
 HALF = WIN // 2
@@ -104,9 +108,11 @@ def _track_level(img_prev, img_cur, pts_prev, guess, iters, eps,
     converged = torch.zeros(N, dtype=torch.bool, device=dev) if active is None \
         else ~active
     g = guess
+    n_it = 0
     for _ in range(iters):
-        if bool(converged.all()):
+        if to_host(converged.all()):
             break
+        n_it += 1
         ry = (g[:, 1] - oyf)[:, None] + off[None, :]
         rx = (g[:, 0] - oxf)[:, None] + off[None, :]
         J = _hat_sample(Pc, ry, rx)
@@ -120,6 +126,8 @@ def _track_level(img_prev, img_cur, pts_prev, guess, iters, eps,
         g = torch.where(converged[:, None], g, g + delta)
         converged = converged | done
     guess = g
+    count("lk_calls")
+    count("lk_iters", n_it)
 
     in_cur = ((guess[:, 0] >= 0.0) & (guess[:, 0] < W - 1.0)
               & (guess[:, 1] >= 0.0) & (guess[:, 1] < H - 1.0))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from esvio_tpu_torch.utils.metrics import count, to_host
+
 
 def _disc_offsets(radius: int, row: int, device):
     """Flat offsets, in a grid of row length `row`, of the filled disc's
@@ -129,13 +131,17 @@ def grid_spacing(priority, xs, ys, valid, height: int, width: int,
             kill = kill | (static_ok & live[jc])
         return is_winner & ~kill
 
-    # Jacobi iteration of priority-ordered suppression to a fixed point
+    # Jacobi iteration of priority-ordered suppression to a fixed point,
+    # checked on the host (a counted fetch) after each sweep
     prev = is_winner
     live = sweep(is_winner)
+    n_sweeps = 1
     for _ in range(1, suppress_iters):
-        if bool(torch.equal(live, prev)):
+        if to_host(torch.all(live == prev)):
             break
         prev, live = live, sweep(live)
+        n_sweeps += 1
+    count("spacing_sweeps", n_sweeps)
 
     live_s = live[order]
     live_rank = torch.cumsum(live_s.to(torch.int64), 0) - 1

@@ -188,7 +188,7 @@ def iterate_chunks(stream: EventStream, freq: float, capacity: int, device,
             V[:m] = True
             to = lambda a: torch.from_numpy(a).to(device)
             yield edge, EventChunk(t=to(T), x=to(X), y=to(Y), p=to(P),
-                                   valid=to(V), n_host=m)
+                                   valid=to(V), n_host=m, n_offered=hi - lo)
         lo = hi
         if lo >= len(t):
             break
@@ -207,7 +207,9 @@ def iterate_chunks_fast(stream: EventStream, freq: float, capacity: int,
     at least one) into padded arrays on the host, then each tick's chunk is
     copied to `device`.  A block starts at the last one's final edge, which
     the packetizer accumulates as `iterate_chunks` does, so the blocks
-    yield the same (stamp, EventChunk) sequence as one call."""
+    yield the same (stamp, EventChunk) sequence as one call.  The events
+    offered in a tick (`n_offered`) are counted on its edges by two
+    binary searches."""
     from esvio_tpu_torch.io import native
     t = np.ascontiguousarray(stream.t, np.float64)
     if len(t) == 0 or freq <= 0:
@@ -222,13 +224,17 @@ def iterate_chunks_fast(stream: EventStream, freq: float, capacity: int,
     while n_frames > 0:
         stamps, ts, xs, ys, ps, vs = native.packetize(
             t, x, y, p, t0, freq, capacity, min(block, n_frames))
+        lo = int(np.searchsorted(t, t0, side="right"))
         for k in range(len(stamps)):
+            hi = int(np.searchsorted(t, stamps[k], side="right"))
+            n_offered, lo = hi - lo, hi
             m = int(vs[k].sum())
             if m == 0:
                 continue   # an empty tick is no chunk (see iterate_chunks)
             to = lambda a: torch.tensor(a[k], device=device)
             yield float(stamps[k]), EventChunk(t=to(ts), x=to(xs), y=to(ys),
-                                               p=to(ps), valid=to(vs), n_host=m)
+                                               p=to(ps), valid=to(vs), n_host=m,
+                                               n_offered=n_offered)
         if len(stamps) < min(block, n_frames):
             return                       # the stream ended inside the block
         n_frames -= len(stamps)

@@ -21,6 +21,7 @@ import torch
 from esvio_tpu_torch.core import camera, lie_np, prng
 from esvio_tpu_torch.init import pnp
 from esvio_tpu_torch.loop import brief, fast, keyframe_db, pose_graph
+from esvio_tpu_torch.utils.metrics import count, to_host
 
 MIN_LOOP_NUM = 15       # keyframe.h:18
 MAX_YAW_DEG = 30.0      # keyframe.cpp:523
@@ -171,6 +172,8 @@ class LoopCloser:
         q_w = lie_np.rot_to_quat(self.w_r_vio @ lie_np.quat_to_rot(pending["q_w"]))
         win_pts_w = (self.w_r_vio @ pending["win_pts_w"].T).T + self.w_t_vio
 
+        # the wait for begin_keyframe's copy: a counted host fetch
+        count("host_fetches")
         if pending["ready"] is not None:
             pending["ready"].synchronize()
         got = {k: v.numpy() for k, v in pending["feats"].items()}
@@ -280,7 +283,7 @@ class LoopCloser:
             self._t(dbw.win_valid[j_new], torch.bool),
             self._t(dbw.ext_desc[i_old], torch.int8),
             self._t(dbw.ext_valid[i_old], torch.bool), cfg.hamming_max)
-        idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+        idx, ok = to_host(idx), to_host(ok)
         if ok.sum() < MIN_LOOP_NUM:
             return None
 
@@ -294,7 +297,7 @@ class LoopCloser:
             k, self._t(pts_w), self._t(obs_old), self._t(ok, torch.bool),
             self._t(R_old.T), self._t(dbw.t_vio[i_old]), cfg.pnp_threshold,
             cfg.pnp_hypotheses)
-        R, t, inl = (v.cpu().numpy() for v in (R, t, inl))
+        R, t, inl = (to_host(v) for v in (R, t, inl))
         n_inl = int(inl.sum())
         if n_inl < MIN_LOOP_NUM:
             return None
@@ -428,8 +431,8 @@ class LoopCloser:
             self._t(self.first_loop_idx or 0, i64), self._t(li, i64),
             self._t(lj, i64), self._t(lt), self._t(ly), self._t(lv, torch.bool),
             iters=self.cfg.graph_iters)
-        yaw_o = yaw_o.cpu().numpy().astype(float)[:n]
-        t_o = t_o.cpu().numpy().astype(float)[:n]
+        yaw_o = to_host(yaw_o).astype(float)[:n]
+        t_o = to_host(t_o).astype(float)[:n]
         self.n_optimize += 1
 
         # write back the optimized poses; pitch/roll stay from VIO

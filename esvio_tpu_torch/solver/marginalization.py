@@ -20,6 +20,7 @@ from esvio_tpu_torch.solver import gauss_newton as gn
 from esvio_tpu_torch.solver.window import (
     DIM_ALL, OFF_EX, OFF_SB, WINDOW, FeatureBook, WindowState, start_frame,
 )
+from esvio_tpu_torch.utils.metrics import count
 
 _EPS = 1e-8  # eigenvalue threshold (marginalization_factor.cpp:233,257)
 
@@ -28,7 +29,9 @@ def _eigh(A):
     """Symmetric eigendecomposition computed in float64, returned in A's
     dtype: these systems reach cond ≈ 1e17 (bias random-walk weights next
     to vision rows) and float32 syevd (LAPACK on the CPU, cuSOLVER on the
-    card) can fail to converge on them."""
+    card) can fail to converge on them.  eigh reads its convergence flags
+    back to the host: a counted host fetch."""
+    count("host_fetches")
     w, V = torch.linalg.eigh(A.to(torch.float64))
     return w.to(A.dtype), V.to(A.dtype)
 

@@ -2,7 +2,11 @@
 esvio_tpu/utils/metrics.py).
 
   * StageTimer     — accumulating per-stage wall timers
-  * Metrics        — counters / gauges / series, JSON-lines emission
+  * Metrics        — counters / gauges / series, JSON-lines emission, and,
+                     with `record=True`, the per-tick record: one line per
+                     tick with its spans and counts
+  * span / count / to_host — the record's hooks for the modules a tick
+                     calls: a sub-span, a count, a counted device→host read
   * trace          — a named range in the profiler's trace
                      (torch.profiler.record_function)
   * device_profile — a CPU + CUDA torch.profiler trace, exported as a
@@ -13,6 +17,19 @@ the pipeline's stages.  StageTimer synchronizes the CUDA device before it
 reads the clock at both ends of a stage when it is given a CUDA device:
 PyTorch returns before the card finishes, so an unsynchronized host clock
 would time the enqueue.
+
+The per-tick record.  Each span holds its name, its parent span's name,
+the tick it belongs to and its host start and end, stamped by
+`time.perf_counter_ns()` and put on the Unix clock in ns (the clock of
+torch.profiler's events) by the offset `time.time_ns() - perf_counter_ns()`
+noted once when the record starts.  A StageTimer given the record makes
+each stage a span of the stage's tick, from after the opening
+synchronisation to after the closing one, as it times the stage; a span
+opened inside it is a `record_function` range too, so the profiler shows
+it.  Counts are kept per tick and per stage (the outermost open span).
+Everything stays in memory (`Metrics.ticks`).  Off (no record is active),
+`span` returns a shared null context and `count` returns at once: nothing
+is stamped, entered or allocated.
 """
 from __future__ import annotations
 
@@ -25,6 +42,34 @@ from typing import Optional
 
 import torch
 
+_NULL = contextlib.nullcontext()
+# the Metrics whose per-tick record is on (`Metrics.recording`), or None
+_active = None
+
+
+def span(name: str):
+    """A span of the active record inside its innermost open span (of that
+    span's tick), also a `record_function` range; the shared null context
+    when no record is active."""
+    m = _active
+    return _NULL if m is None else m.span(name)
+
+
+def count(name: str, n: int = 1):
+    """Add n to the active record's count `name` for the current tick and
+    stage; nothing when no record is active."""
+    m = _active
+    if m is not None:
+        m.count_tick(name, n)
+
+
+def to_host(x):
+    """A blocking device→host read of tensor x, counted as one
+    `host_fetches` of the current tick: a Python number for a 0-d tensor
+    (`item`, which makes no host tensor), else a numpy array."""
+    count("host_fetches")
+    return x.item() if x.dim() == 0 else x.detach().cpu().numpy()
+
 
 class StageTimer:
     """Accumulating wall-clock stage timers, each stage a `trace` range.
@@ -34,27 +79,32 @@ class StageTimer:
     >>> tim.report()  # {'frontend': {'total_s':..., 'n':..., 'mean_ms':...}}
     """
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, record: Optional["Metrics"] = None):
         dev = torch.device(device) if device is not None else None
         self._cuda = dev if dev is not None and dev.type == "cuda" else None
         self.total = defaultdict(float)
         self.count = defaultdict(int)
+        self.record = record   # a Metrics with record=True: stages are spans
 
     def _sync(self):
         if self._cuda is not None:
             torch.cuda.synchronize(self._cuda)
 
     @contextlib.contextmanager
-    def __call__(self, stage: str):
+    def __call__(self, stage: str, tick=None):
+        """Time `stage`; with a record, also its span in tick `tick` (the
+        key `Metrics.begin_tick` returned)."""
         self._sync()
         t0 = time.perf_counter()
-        try:
-            with trace(stage):
-                yield self
-        finally:
-            self._sync()
-            self.total[stage] += time.perf_counter() - t0
-            self.count[stage] += 1
+        rec = self.record
+        with _NULL if rec is None else rec.span(stage, tick, ranged=False):
+            try:
+                with trace(stage):
+                    yield self
+            finally:
+                self._sync()
+                self.total[stage] += time.perf_counter() - t0
+                self.count[stage] += 1
 
     def report(self):
         return {
@@ -64,15 +114,48 @@ class StageTimer:
         }
 
 
+class _Span:
+    """An open span of a tick record."""
+
+    __slots__ = ("rec", "name", "tick", "ranged", "parent", "stage", "base",
+                 "rf", "start")
+
+    def __init__(self, rec, name, tick, ranged):
+        self.rec, self.name, self.tick, self.ranged = rec, name, tick, ranged
+
+    def __enter__(self):
+        self.rec._open_span(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.rec._close_span(self)
+
+
 class Metrics:
     """Counters + gauges + simple series; `emit` writes one JSON line to the
-    sink file (appended) when one is given."""
+    sink file (appended) when one is given.
 
-    def __init__(self, sink: Optional[str] = None):
+    With `record=True`, also the per-tick record (module docstring): the
+    pipeline calls `begin_tick` at a tick's hand-over, times its stages
+    with a StageTimer given this Metrics, and `end_tick` closes the tick's
+    line into `ticks`: dict(tick = the sensor stamp, handover_ns, pose_ns,
+    pose_latency_ns, end_ns, spans = [[name, parent, start_ns, end_ns]],
+    counts = {name: {stage: n}}, and the fields the pipeline sets)."""
+
+    def __init__(self, sink: Optional[str] = None, record: bool = False):
         self.counters = defaultdict(float)
         self.gauges = {}
         self.series = defaultdict(list)
         self._sink = open(sink, "a") if sink else None
+        self.ticks = [] if record else None   # the finished tick lines
+        if record:
+            self.offset_ns = time.time_ns() - time.perf_counter_ns()
+            self._open = {}      # key -> line of a tick not yet ended
+            self._stack = []     # open spans, innermost last
+            self._orphans = []   # spans closed before their tick began
+            self._watch = {}     # name -> cumulative count, read at stages
+            self._latest = None  # key of the latest tick begun
+            self._n = 0
 
     def count(self, name: str, inc: float = 1.0):
         self.counters[name] += inc
@@ -109,6 +192,123 @@ class Metrics:
         if self._sink:
             self._sink.close()
             self._sink = None
+
+    # ------------------------------------------------- the per-tick record
+    @contextlib.contextmanager
+    def recording(self):
+        """Make this record the active one (`span`, `count`, `to_host`)
+        for the block; without a record, nothing."""
+        global _active
+        if self.ticks is None:
+            yield self
+            return
+        prev, _active = _active, self
+        try:
+            yield self
+        finally:
+            _active = prev
+
+    def watch(self, **sources):
+        """Cumulative counts (name=callable) read when a stage opens and
+        closes: each stage adds its delta to the tick's count `name`."""
+        self._watch.update(sources)
+
+    def _now(self):
+        return time.perf_counter_ns() + self.offset_ns
+
+    def begin_tick(self, tick: float):
+        """A tick handed over now, with sensor stamp `tick`; returns its key
+        (None without a record).  Spans closed since the last tick began
+        (the pull that handed this one over) join it."""
+        if self.ticks is None:
+            return None
+        key = self._n
+        self._n += 1
+        self._open[key] = dict(tick=float(tick), handover_ns=self._now(),
+                               spans=self._orphans, counts={})
+        self._orphans = []
+        self._latest = key
+        return key
+
+    def tick_fields(self, key, **fields):
+        if key is not None:
+            self._open[key].update(fields)
+
+    def mark(self, key, name: str):
+        """Stamp the instant `name` (`<name>_ns`) in tick `key`."""
+        if key is not None:
+            self._open[key][name + "_ns"] = self._now()
+
+    def end_tick(self, key, **fields):
+        """Close tick `key`: its `tick` span runs from the hand-over to now."""
+        if key is None:
+            return
+        line = self._open.pop(key)
+        line.update(fields)
+        line["end_ns"] = end = self._now()
+        line["spans"].append(["tick", None, line["handover_ns"], end])
+        if "pose_ns" in line:
+            line["pose_latency_ns"] = line["pose_ns"] - line["handover_ns"]
+        self.ticks.append(line)
+
+    def span(self, name: str, tick=None, ranged: bool = True):
+        """A span named `name` in tick `tick` (the key of `begin_tick`;
+        default the innermost open span's).  ranged: also a
+        `record_function` range."""
+        return _Span(self, name, tick, ranged)
+
+    def _open_span(self, sp):
+        par = self._stack[-1] if self._stack else None
+        if par is not None:
+            if sp.tick is None:
+                sp.tick = par.tick
+            sp.parent, sp.stage, sp.base = par.name, par.stage, None
+        else:
+            sp.parent = None if sp.tick is None else "tick"
+            sp.stage = sp.name
+            sp.base = {k: f() for k, f in self._watch.items()} \
+                if sp.tick is not None else None
+        sp.rf = None
+        if sp.ranged:
+            sp.rf = torch.profiler.record_function(sp.name)
+            sp.rf.__enter__()
+        self._stack.append(sp)
+        sp.start = time.perf_counter_ns()
+
+    def _close_span(self, sp):
+        end = time.perf_counter_ns()
+        if sp.rf is not None:
+            sp.rf.__exit__(None, None, None)
+        self._stack.pop()
+        rec = [sp.name, sp.parent, sp.start + self.offset_ns,
+               end + self.offset_ns]
+        if sp.tick is None:
+            self._orphans.append(rec)
+            return
+        line = self._open[sp.tick]
+        line["spans"].append(rec)
+        if sp.base:
+            for k, f in self._watch.items():
+                d = f() - sp.base[k]
+                if d:
+                    self._add(line, k, sp.stage, d)
+
+    def count_tick(self, name: str, n: int = 1):
+        """Add n to count `name` of the innermost open span's tick and stage
+        (outside every span: the latest tick begun, stage "pipeline")."""
+        if self._stack:
+            sp = self._stack[-1]
+            key, stage = sp.tick, sp.stage
+        else:
+            key, stage = self._latest, "pipeline"
+        line = self._open.get(key)
+        if line is not None:
+            self._add(line, name, stage, n)
+
+    @staticmethod
+    def _add(line, name, stage, n):
+        c = line["counts"].setdefault(name, {})
+        c[stage] = c.get(stage, 0) + n
 
 
 @contextlib.contextmanager

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from esvio_tpu_torch import _kernels
+from esvio_tpu_torch.utils.metrics import count
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64,
              torch.int32: np.int32, torch.int64: np.int64,
@@ -49,8 +50,9 @@ def pack_post(post):
 
 
 def fetch_post(packed, layout):
-    """One device→host copy of a packed dict, unpacked into numpy arrays
-    that own their memory."""
+    """One device→host copy of a packed dict (a counted host fetch),
+    unpacked into numpy arrays that own their memory."""
+    count("host_fetches")
     host = torch.empty(packed.shape, dtype=torch.uint8,
                        pin_memory=packed.is_cuda)
     host.copy_(packed)
