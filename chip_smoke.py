@@ -375,6 +375,85 @@ def phase_chol(device):
     return rows[1]
 
 
+# ---------------------------------------------------------------- phase 3b
+# FLOP of K3 per window pixel and iteration: the bilinear sample (four
+# weights, six multiply-adds), the residual, the two products into the sums
+# and the pixel's coordinates, about 30
+K3_FLOP_PER_PX_IT = 30
+
+
+def _k3_work(pyr, lane_iters):
+    """(bytes, FLOP) K3 needs for these inputs: each tracked level image of
+    both pyramids once (a lane's two patches a level overlap its
+    neighbours' and come from L2), the points, valid flags and outputs, and
+    K3_FLOP_PER_PX_IT for each window pixel of each iteration a lane ran."""
+    from esvio_tpu_torch.frontend import lk
+    N, loops = lane_iters.shape
+    n_bytes = sum(2 * H * W * 4 for H, W in (lvl[0].shape for lvl in pyr)
+                  if min(H, W) >= lk.WIN)
+    # pts and init (N, 2) float32, valid (N,) bool in; points (2, N, 2),
+    # status (2, N) and iteration counts (N, loops) out
+    n_bytes += N * (2 * 8 + 1 + 16 + 2 + 4 * loops)
+    flops = int(lane_iters.sum()) * lk.WIN * lk.WIN * K3_FLOP_PER_PX_IT
+    return n_bytes, flops
+
+
+def phase_lk_track(device):
+    """K3 against the plain LK pair at the cells' shapes (tests/lk_cases.py:
+    inputs, tolerances and their reason), then its time: bare (the C entry
+    point alone, launches in a CUDA graph), as the main path calls it
+    (lk_track_fb), the plain pair's, and the bound of its bytes and FLOP."""
+    import ctypes
+    import torch
+    import lk_cases
+    from esvio_tpu_torch import _kernels
+    from esvio_tpu_torch.frontend import lk
+    from esvio_tpu_torch.utils.metrics import graph_ms
+    fn = _kernels.LK_TRACK.fn()
+    rows = {}
+    for kind, H, W in lk_cases.CASES:
+        out = lk_cases.compare(kind, H, W, seed=H * W, device=device)
+        pyr_p, pyr_c, pts, valid = lk_cases.inputs(kind, H, W, H * W, device)
+        _, _, lane_iters = lk.launch_k3(pyr_p, pyr_c, pts, valid, iters=lk_cases.ITERS)
+        N, loops = lane_iters.shape
+        imgs = [lvl[0] for lvl in pyr_p + pyr_c]
+        ptrs = (ctypes.c_void_p * len(imgs))(*[t.data_ptr() for t in imgs])
+        hw = (ctypes.c_int * len(imgs))(*[d for t in imgs[:len(pyr_p)] for d in t.shape])
+        eps_sq = ctypes.c_float(0.01 * 0.01)
+        po = torch.empty((2, N, 2), device=device)
+        so = torch.empty((2, N), dtype=torch.bool, device=device)
+        io = torch.empty((N, loops), dtype=torch.int32, device=device)
+        launch = lambda: fn(ctypes.addressof(ptrs), ctypes.addressof(hw), len(pyr_p),
+                            pts.data_ptr(), pts.data_ptr(), valid.data_ptr(),
+                            po.data_ptr(), so.data_ptr(), io.data_ptr(), N,
+                            lk_cases.ITERS, ctypes.addressof(eps_sq),
+                            _kernels.stream_ptr(device))
+        ms = graph_ms(launch, reps=20)
+        wrapper_ms = _timed(lambda: lk.lk_track_fb(pyr_p, pyr_c, pts, valid,
+                                                   iters=lk_cases.ITERS), reps=20)
+        plain_ms = _timed(lambda: lk_cases.plain_pair(pyr_p, pyr_c, pts, valid),
+                          reps=3, warmup=1)
+        n_bytes, flops = _k3_work(pyr_p, lane_iters)
+        bound_ms, bound_by = _bound(n_bytes, flops, PEAK_F32)
+        lane_its = int(lane_iters.sum())
+        rows[(kind, H, W)] = dict(
+            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=max(out["max_px_forward"], out["max_px_reverse"]))
+        log(f"  K3 lk_track {kind} {H}x{W}, {N} lanes ({out['valid']} valid, "
+            f"{out['ok_fwd']} / {out['ok_back']} ok forward / reverse, "
+            f"{out['unsettled']} unsettled): status equal, points within "
+            f"{out['max_px_forward']:.2e} / {out['max_px_reverse']:.2e} px, "
+            f"level loops' iterations {out['k3_iters']} as the plain pair's; "
+            f"{lane_its} lane iterations; bare {ms:.4f} ms, wrapper "
+            f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms * 1e3:.3f} us ({bound_by}, {bound_ms / ms:.2%} reached; "
+            f"the serial chain is {sum(out['k3_iters'])} iterations, "
+            f"{ms * 1e3 / max(sum(out['k3_iters']), 1):.2f} us each)")
+    log("phase 3b LK pair K3: ok")
+    return rows[lk_cases.CASES[0]]
+
+
 # ---------------------------------------------------------------- phase 4/5
 def _graph_use(pipe):
     """(captures, replays) of the pipeline's fused-tick CUDA graphs; fails
@@ -398,6 +477,7 @@ def phase_golden(device):
     wall = time.perf_counter() - t0
     k1 = _kernels.CORNER_MASK.launches
     k2 = _kernels.CHOL_SOLVE.launches
+    k3 = _kernels.LK_TRACK.launches
     g = golden_gates(res, gt_t, gt_P, GOLDEN_NPZ)
     ticks = res.metrics["ticks"]
     caps, reps = _graph_use(pipe)
@@ -406,7 +486,7 @@ def phase_golden(device):
         f"stamps (golden {g['n_golden']}), max dev {g['max_dev_4dof']:.4f} m "
         f"after yaw {g['yaw_deg']:.2f} deg + shift {g['shift_m']:.4f} m "
         f"({g['max_dev']:.4f} m unaligned), ATE {g['ate']:.4f} m (golden "
-        f"{g['ate_golden']:.4f} m); launches K1 {k1}, K2 {k2}; fused-tick "
+        f"{g['ate_golden']:.4f} m); launches K1 {k1}, K2 {k2}, K3 {k3}; fused-tick "
         f"graphs: {caps} captured, {reps} replays")
     if not g["stamps_ok"]:
         raise AssertionError("golden: NON_LINEAR stamps differ")
@@ -415,9 +495,9 @@ def phase_golden(device):
     if not g["max_dev_4dof"] < GOLDEN_MAX_DEV_M:
         raise AssertionError(f"golden: max deviation {g['max_dev_4dof']:.4f} m "
                              "after the yaw + translation alignment")
-    if k1 != ticks or k2 == 0:
+    if k1 != ticks or k2 == 0 or k3 != 2 * ticks:
         raise AssertionError(f"golden: K1 launched {k1} times for {ticks:.0f} "
-                             f"tracker ticks, K2 {k2} times")
+                             f"tracker ticks, K2 {k2} times, K3 {k3} times")
     log("phase 4 golden pipeline: ok")
     return (seq, gt_t, gt_P), res
 
@@ -2521,7 +2601,7 @@ def phase_profile(device, sequence):
     """Metrics and profile: the golden pipeline (phase 4's configuration,
     with dump_viz_dir) with utils.metrics.device_profile around three
     steady ticks (ticks 16-18 fed by chunk_pairs); the Chrome trace names
-    both kernels' __global__ functions and the pipeline's trace() ranges
+    the three kernels' __global__ functions and the pipeline's trace() ranges
     (its StageTimer stages); Metrics(sink=...) writes one JSON line per
     emit; dump_viz_dir holds the time surface and overlay of every 5th
     tick."""
@@ -2568,8 +2648,8 @@ def phase_profile(device, sequence):
         with open(os.path.join(trace_dir, trace_file)) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         found = {k: any(k in nm for nm in names) for k in (
-            "corner_mask_kernel", "chol_solve_kernel", "frontend_event",
-            "estimator")}
+            "corner_mask_kernel", "chol_solve_kernel", "lk_track_kernel",
+            "frontend_event", "estimator")}
         sink = os.path.join(d, "metrics.jsonl")
         met = metrics.Metrics(sink=sink)
         lines = []
@@ -2630,14 +2710,15 @@ def main():
     peak_cmp = _phase(phase_device)
     k1 = _phase(phase_corner_mask, device, K1_SHAPES, (240, 320), peak_cmp)
     k2 = _phase(phase_chol, device)
+    k3 = _phase(phase_lk_track, device)
     pool = _prerender()
     try:
-        return _later_phases(device, t_start, k1, k2)
+        return _later_phases(device, t_start, k1, k2, k3)
     finally:
         pool.shutdown(cancel_futures=True)
 
 
-def _later_phases(device, t_start, k1, k2):
+def _later_phases(device, t_start, k1, k2, k3):
     """Phases 4-27, the kernels line and the last line."""
     import torch
     from esvio_tpu_torch import _kernels
@@ -2678,7 +2759,8 @@ def _later_phases(device, t_start, k1, k2):
     # 240x320 run with loop closure (phase 13), the ESVIO bench run (phase
     # 10) and the ESIO one (phase 5)
     kernels = []
-    for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2)):
+    for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2),
+                   (_kernels.LK_TRACK, k3)):
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches_l[k.name],

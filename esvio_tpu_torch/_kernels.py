@@ -38,11 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # no FMA contraction: the packetizer's IMU interpolation matches numpy's
 CXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
-# parameter kinds of each extern "C" entry point: "ptr" (device pointer or
-# stream) or "int"; all return an int cudaError_t
+# parameter kinds of each extern "C" entry point: "ptr" (device pointer,
+# stream, or a host array the entry point reads before it returns) or
+# "int"; all return an int cudaError_t
 SIGNATURES = {
     "esv_corner_mask": ("ptr", "ptr", "int", "int", "int", "ptr"),
     "esv_chol_solve": ("ptr", "ptr", "ptr", "ptr", "int", "ptr"),
+    "esv_lk_track": ("ptr", "ptr", "int", "ptr", "ptr", "ptr", "ptr", "ptr",
+                     "ptr", "int", "int", "ptr", "ptr"),
 }
 _CTYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int}
 
@@ -84,7 +87,11 @@ CORNER_MASK = Kernel(
 CHOL_SOLVE = Kernel(
     "chol_solve", "esv_chol_solve", "esvio_tpu_torch/csrc/chol_solve.cu",
     "esvio_tpu/solver/chol_pallas.py:145")
-KERNELS = (CORNER_MASK, CHOL_SOLVE)
+LK_TRACK = Kernel(
+    "lk_track", "esv_lk_track", "esvio_tpu_torch/csrc/lk_track.cu",
+    "no Pallas kernel: JAX's LK is a jitted lax.while_loop "
+    "(esvio_tpu/frontend/lk.py:145)")
+KERNELS = (CORNER_MASK, CHOL_SOLVE, LK_TRACK)
 
 
 class HostLib(Kernel):

@@ -239,6 +239,7 @@ class Pipeline:
             met.watch(
                 k1_launches=lambda: _kernels.CORNER_MASK.launches,
                 k2_launches=lambda: _kernels.CHOL_SOLVE.launches,
+                lk_launches=lambda: _kernels.LK_TRACK.launches,
                 graph_captures=lambda: graphs().n_captures if graphs() else 0,
                 graph_replays=lambda: graphs().n_replays if graphs() else 0,
                 lanes_dropped=lambda: self.estimator.lanes_dropped,

@@ -9,21 +9,31 @@ each feature once per level and every bilinear resample inside the GN loop
 is two small batched matmuls against separable hat-function weights.
 
 The JAX version stops its GN loop when every lane has converged; a
-converged lane never moves again, so stopping there or later gives the same
-result.  Here the loop checks convergence on the host every iteration (a
-counted host fetch); the per-tick record counts the calls of one level's
-loop (`lk_calls`) and the iterations it ran (`lk_iters`).
+converged lane never moves again, so stopping there, later, or at each
+lane's own convergence gives the same result.  The trackers run a forward
+pass and its reverse check as one pair, `lk_track_fb`: on the card kernel
+K3 (csrc/lk_track.cu), one launch per pair with no host round trip, each
+lane stopping on its own; on the CPU the plain version, two `lk_track`
+calls, whose loop checks convergence on the host every iteration (a
+counted host fetch).  The per-tick record counts the calls of one level's
+loop (`lk_calls`) and the iterations it ran (`lk_iters`, the most of any
+lane); K3's are read from the card only while a record is active, once
+the stage has closed.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from esvio_tpu_torch.utils.metrics import count, to_host
+from esvio_tpu_torch import _kernels
+from esvio_tpu_torch.utils.metrics import count, count_later, to_host
 
 WIN = 21
 HALF = WIN // 2
 PATCH = 48              # per-feature patch side (tracking range ≈ ±13 px/level)
 _MIN_EIG_THRESH = 1e-4  # OpenCV minEigThreshold (per-pixel normalized)
+FB_LEVELS = 2           # the reverse check's levels, the finest (maxLevel)
 
 
 def _extract_patches(img, oy, ox, Sy, Sx):
@@ -167,3 +177,79 @@ def lk_track(pyr_prev, pyr_cur, pts_prev, valid, pts_init=None,
         if lvl > 0:
             guess = guess * 2.0
     return guess, status & valid
+
+
+def _tracked_levels(imgs) -> int:
+    """Level loops a pass over `imgs` runs: levels smaller than the window
+    are skipped."""
+    return sum(min(img.shape) >= WIN for img in imgs)
+
+
+def launch_k3(pyr_prev, pyr_cur, pts, valid, pts_init=None,
+              iters: int = 30, eps: float = 0.01):
+    """Launch kernel K3 on CUDA float32 pyramids: the forward pass
+    prev → cur from pts_init (default pts) and its reverse check
+    cur → prev over the FB_LEVELS finest levels from pts.  Returns
+    (pts_out (2, N, 2), status (2, N), lane_iters (N, level loops)):
+    forward then reverse, and each lane's iterations per level loop."""
+    imgs_a = [lvl[0] for lvl in pyr_prev]
+    imgs_b = [lvl[0] for lvl in pyr_cur]
+    pts_init = pts if pts_init is None else pts_init
+    levels = len(imgs_a)
+    floats = imgs_a + imgs_b + [pts, pts_init]
+    if any(t.dtype != torch.float32 for t in floats) or valid.dtype != torch.bool:
+        raise ValueError("launch_k3 takes float32 images and points and "
+                         "a bool valid")
+    N = pts.shape[0]
+    if not (1 <= levels == len(imgs_b) <= 8) \
+            or pts.shape != (N, 2) or pts_init.shape != (N, 2) \
+            or valid.shape != (N,) \
+            or any(a.dim() != 2 or a.shape != b.shape
+                   for a, b in zip(imgs_a, imgs_b)):
+        raise ValueError(
+            f"launch_k3 shapes: pts {tuple(pts.shape)}, pts_init "
+            f"{tuple(pts_init.shape)}, valid {tuple(valid.shape)}, levels "
+            f"{[tuple(a.shape) for a in imgs_a]} / "
+            f"{[tuple(b.shape) for b in imgs_b]}")
+    if not all(t.is_contiguous() for t in floats + [valid]):
+        raise ValueError("launch_k3 takes contiguous tensors")
+    if not all(t.is_cuda for t in floats + [valid]):
+        raise ValueError("launch_k3 needs CUDA tensors")
+    loops = _tracked_levels(imgs_a) + _tracked_levels(imgs_a[:FB_LEVELS])
+    dev = pts.device
+    pts_out = torch.empty((2, N, 2), dtype=torch.float32, device=dev)
+    st_out = torch.empty((2, N), dtype=torch.bool, device=dev)
+    lane_iters = torch.empty((N, loops), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * (2 * levels))(*[t.data_ptr() for t in imgs_a + imgs_b])
+    hw = (ctypes.c_int * (2 * levels))(*[d for a in imgs_a for d in a.shape])
+    eps_sq = ctypes.c_float(eps * eps)
+    err = _kernels.LK_TRACK.fn()(
+        ctypes.addressof(ptrs), ctypes.addressof(hw), levels,
+        pts.data_ptr(), pts_init.data_ptr(), valid.data_ptr(), pts_out.data_ptr(),
+        st_out.data_ptr(), lane_iters.data_ptr(), N, iters,
+        ctypes.addressof(eps_sq), _kernels.stream_ptr(dev))
+    _kernels.check(err, _kernels.LK_TRACK)
+    _kernels.LK_TRACK.launches += 1
+    return pts_out, st_out, lane_iters
+
+
+def lk_track_fb(pyr_prev, pyr_cur, pts, valid, pts_init=None,
+                iters: int = 30, eps: float = 0.01):
+    """A forward pass and its reverse check: track pts from the previous to
+    the current pyramid (from pts_init, default pts), then the result back
+    over the FB_LEVELS finest levels from pts, with the forward status as
+    its valid flag.  Kernel K3 on the card (`launch_k3`; the record counts
+    its level loops now and their iterations, each loop's most of any lane,
+    once the stage has closed), two plain `lk_track` calls on the CPU.
+    Returns (cur_pts, status, back_pts, back_status)."""
+    if pts.is_cuda:
+        pts_out, st_out, lane_iters = launch_k3(pyr_prev, pyr_cur, pts, valid,
+                                                pts_init, iters, eps)
+        count("lk_calls", lane_iters.shape[1])
+        if lane_iters.numel():
+            count_later("lk_iters", lambda: int(lane_iters.amax(0).sum()))
+        return pts_out[0], st_out[0], pts_out[1], st_out[1]
+    cur, st = lk_track(pyr_prev, pyr_cur, pts, valid, pts_init, iters, eps)
+    back, st_b = lk_track(pyr_cur[:FB_LEVELS], pyr_prev[:FB_LEVELS], cur, st,
+                          pts_init=pts, iters=iters, eps=eps)
+    return cur, st, back, st_b

@@ -163,10 +163,8 @@ def _track_temporal(cfg: TrackerConfig, cam_left: CameraModel, state,
     """Steps 2-3: temporal LK prev←cur with a reverse check on the two fine
     levels (feature_tracker.cpp:410-428), then FM-RANSAC in the
     virtual-focal frame (rejectWithF).  Returns (cur, tracked, track_cnt)."""
-    cur, st = lk.lk_track(state.prev_pyr, pyr_l, state.pts, state.valid,
-                          iters=cfg.lk_iters)
-    back, st_b = lk.lk_track(pyr_l[:2], state.prev_pyr[:2], cur, st,
-                             pts_init=state.pts, iters=cfg.lk_iters)
+    cur, st, back, st_b = lk.lk_track_fb(state.prev_pyr, pyr_l, state.pts,
+                                         state.valid, iters=cfg.lk_iters)
     fb_ok = torch.sum((back - state.pts) ** 2, dim=-1) <= cfg.fb_threshold ** 2
     tracked = st & st_b & fb_ok & _in_border(cfg, cur)
 
@@ -234,10 +232,8 @@ def _refill_and_stereo(cfg: TrackerConfig, cam_left: CameraModel,
     prev_rv_n = all_prev_rv[order]
 
     # ---- 5. stereo LK with reverse check (feature_tracker.cpp:490-505) ----
-    r_pts, r_st = lk.lk_track(pyr_l, pyr_r, pts_n, valid_n, pts_init=pts_n,
-                              iters=cfg.lk_iters)
-    r_back, r_st_b = lk.lk_track(pyr_r[:2], pyr_l[:2], r_pts, r_st,
-                                 pts_init=pts_n, iters=cfg.lk_iters)
+    r_pts, r_st, r_back, r_st_b = lk.lk_track_fb(pyr_l, pyr_r, pts_n, valid_n,
+                                                 iters=cfg.lk_iters)
     r_fb = torch.sum((r_back - pts_n) ** 2, dim=-1) <= cfg.fb_threshold ** 2
     right_valid = r_st & r_st_b & r_fb & _in_border(cfg, r_pts) & valid_n
 

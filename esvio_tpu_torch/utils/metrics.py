@@ -5,8 +5,10 @@ esvio_tpu/utils/metrics.py).
   * Metrics        — counters / gauges / series, JSON-lines emission, and,
                      with `record=True`, the per-tick record: one line per
                      tick with its spans and counts
-  * span / count / to_host — the record's hooks for the modules a tick
-                     calls: a sub-span, a count, a counted device→host read
+  * span / count / count_later / to_host — the record's hooks for the
+                     modules a tick calls: a sub-span, a count, a count read
+                     from the device when its stage has closed, a counted
+                     device→host read
   * trace          — a named range in the profiler's trace
                      (torch.profiler.record_function)
   * device_profile — a CPU + CUDA torch.profiler trace, exported as a
@@ -61,6 +63,17 @@ def count(name: str, n: int = 1):
     m = _active
     if m is not None:
         m.count_tick(name, n)
+
+
+def count_later(name: str, read):
+    """Add read() to the active record's count `name` for the current tick
+    and stage, calling it when the outermost open span closes (a stage:
+    after its closing synchronisation, so the read waits for nothing) or
+    the tick ends; nothing when no record is active.  For counts that live
+    on the device, such as K3's iteration counts."""
+    m = _active
+    if m is not None:
+        m.count_tick_later(name, read)
 
 
 def to_host(x):
@@ -154,6 +167,7 @@ class Metrics:
             self._stack = []     # open spans, innermost last
             self._orphans = []   # spans closed before their tick began
             self._watch = {}     # name -> cumulative count, read at stages
+            self._later = []     # (key, stage, name, read) of count_later
             self._latest = None  # key of the latest tick begun
             self._n = 0
 
@@ -243,6 +257,7 @@ class Metrics:
         """Close tick `key`: its `tick` span runs from the hand-over to now."""
         if key is None:
             return
+        self._read_later()
         line = self._open.pop(key)
         line.update(fields)
         line["end_ns"] = end = self._now()
@@ -280,6 +295,8 @@ class Metrics:
         if sp.rf is not None:
             sp.rf.__exit__(None, None, None)
         self._stack.pop()
+        if not self._stack:
+            self._read_later()
         rec = [sp.name, sp.parent, sp.start + self.offset_ns,
                end + self.offset_ns]
         if sp.tick is None:
@@ -293,17 +310,31 @@ class Metrics:
                 if d:
                     self._add(line, k, sp.stage, d)
 
-    def count_tick(self, name: str, n: int = 1):
-        """Add n to count `name` of the innermost open span's tick and stage
+    def _where(self):
+        """(tick key, stage) of a count made now: the innermost open span's
         (outside every span: the latest tick begun, stage "pipeline")."""
         if self._stack:
             sp = self._stack[-1]
-            key, stage = sp.tick, sp.stage
-        else:
-            key, stage = self._latest, "pipeline"
+            return sp.tick, sp.stage
+        return self._latest, "pipeline"
+
+    def count_tick(self, name: str, n: int = 1):
+        """Add n to count `name` of the current tick and stage (`_where`)."""
+        key, stage = self._where()
         line = self._open.get(key)
         if line is not None:
             self._add(line, name, stage, n)
+
+    def count_tick_later(self, name: str, read):
+        """count_tick(name, read()), with read() called later (count_later)."""
+        self._later.append((*self._where(), name, read))
+
+    def _read_later(self):
+        later, self._later = self._later, []
+        for key, stage, name, read in later:
+            line = self._open.get(key)
+            if line is not None:
+                self._add(line, name, stage, read())
 
     @staticmethod
     def _add(line, name, stage, n):

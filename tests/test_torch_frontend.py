@@ -73,6 +73,46 @@ def test_lk_track_matches(rng):
     np.testing.assert_allclose(to.numpy()[ts.numpy()], np.asarray(jo)[np.asarray(js)], atol=2e-3)
 
 
+def _lk_inputs(rng, H=60, W=90, N=24):
+    """Shifted smooth images as 3-level pyramids, N points (a few near the
+    border) and a valid mask, for the plain-path LK tests."""
+    r1, r2 = np.random.default_rng(5), np.random.default_rng(5)
+    prev = tpyr.build_lk_pyramid(torch.tensor(_smooth_image(r1, H, W)), 3)
+    cur = tpyr.build_lk_pyramid(torch.tensor(_smooth_image(r2, H, W, shift=(1.7, -1.2))), 3)
+    pts = torch.tensor(np_f32(np.stack([rng.uniform(2, W - 2, N),
+                                        rng.uniform(2, H - 2, N)], -1)))
+    return prev, cur, pts, torch.tensor(rng.random(N) < 0.8)
+
+
+def test_lk_per_lane_exit_is_exact(rng, monkeypatch):
+    """Stopping each lane at its own convergence (K3's exit) gives the
+    global exit's result: with the convergence check never true, every
+    level loop runs all its iterations, and points and status are the same
+    bits."""
+    prev, cur, pts, valid = _lk_inputs(rng)
+    want = tlk.lk_track(prev, cur, pts, valid, iters=15)
+    calls = []
+    monkeypatch.setattr(tlk, "to_host", lambda x: calls.append(1) or False)
+    got = tlk.lk_track(prev, cur, pts, valid, iters=15)
+    assert len(calls) == 2 * 15          # no early exit (level 2 < window)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum()) > 5
+
+
+def test_lk_track_fb_on_cpu_is_the_two_plain_calls(rng):
+    """The pair wrapper on CPU tensors: the forward call and the reverse
+    check over the two finest levels from the original points, bit for
+    bit."""
+    prev, cur, pts, valid = _lk_inputs(rng)
+    init = pts + 0.5
+    got = tlk.lk_track_fb(prev, cur, pts, valid, pts_init=init, iters=15)
+    fwd, st = tlk.lk_track(prev, cur, pts, valid, pts_init=init, iters=15)
+    back, st_b = tlk.lk_track(cur[:2], prev[:2], fwd, st, pts_init=pts, iters=15)
+    for a, b in zip(got, (fwd, st, back, st_b)):
+        assert torch.equal(a, b)
+    assert int(st_b.sum()) > 5
+
+
 def _epipolar_pairs(rng, N=60, outliers=12):
     """Correspondences of a rotating/translating camera at virtual focal 460
     with a block of gross outliers."""

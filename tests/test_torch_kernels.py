@@ -1,10 +1,11 @@
-"""The port's two CUDA kernels from the CPU side: their C interface against
-the ctypes declarations, their wrappers' refusals (a wrapper given a tensor
-it cannot launch on raises; it never falls back), the CPU dispatch to the
-plain versions, and those plain versions at the shapes the card runs.
+"""The port's three CUDA kernels from the CPU side: their C interface
+against the ctypes declarations, their wrappers' refusals (a wrapper given a
+tensor it cannot launch on raises; it never falls back), the CPU dispatch to
+the plain versions, and those plain versions at the shapes the card runs.
 
 The kernels themselves build and run only on the card (chip_smoke.py,
-phases 2-3); nothing here needs nvcc or a GPU.
+phases 2, 3 and 3b; tests/test_torch_lk_card.py); nothing here needs nvcc
+or a GPU.
 
 Tolerances: corner masks exact; Cholesky solves relative error < 5e-5
 against float64 numpy and against the JAX solver (the gate of
@@ -26,6 +27,8 @@ from esvio_tpu.solver import gauss_newton as jgn
 from esvio_tpu_torch import _kernels
 from esvio_tpu_torch.events import corners as tcor
 from esvio_tpu_torch.events import sae as tsae
+from esvio_tpu_torch.frontend import lk as tlk
+from esvio_tpu_torch.frontend import pyramid as tpyr
 from esvio_tpu_torch.solver import chol_solve as tchol
 
 N = tchol.N
@@ -104,6 +107,30 @@ def test_corner_mask_cuda_refuses(case, match):
     assert _kernels.CORNER_MASK.launches == 0
 
 
+def _lk_pair_args(n=8, H=30, W=40):
+    """Two 3-level pyramids and n points for the K3 pair."""
+    g = torch.Generator().manual_seed(0)
+    pyr = lambda: tpyr.build_lk_pyramid(torch.rand((H, W), generator=g) * 255.0, 3)
+    pts = torch.rand((n, 2), generator=g) * torch.tensor([W - 1.0, H - 1.0])
+    return pyr(), pyr(), pts, torch.ones(n, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"), ("float64", "float32"), ("shape", "shapes"),
+    ("strided", "contiguous")])
+def test_lk_track_cuda_refuses(case, match):
+    pyr_p, pyr_c, pts, valid = _lk_pair_args()
+    if case == "float64":
+        pyr_c = [(lvl[0].double(),) for lvl in pyr_c]
+    elif case == "shape":
+        pyr_c = pyr_c[:2]
+    elif case == "strided":
+        pts = torch.cat([pts, pts], 1)[:, ::2]
+    with pytest.raises(ValueError, match=match):
+        tlk.launch_k3(pyr_p, pyr_c, pts, valid)
+    assert _kernels.LK_TRACK.launches == 0
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """On the CPU the dispatchers run the plain versions and launch
     nothing: no nvcc, no library, no launch counted."""
@@ -114,7 +141,10 @@ def test_cpu_tensors_take_the_plain_versions():
     sae = torch.rand((2, 24, 40))
     state = tsae.SAEState(sae=sae, sae_latest=sae)
     assert torch.equal(tcor.corner_mask(state), tcor.corner_mask_plain(sae))
-    assert [k.launches for k in _kernels.KERNELS] == [0, 0]
+    pyr_p, pyr_c, pts, valid = _lk_pair_args()
+    pair = tlk.lk_track_fb(pyr_p, pyr_c, pts, valid, iters=5)
+    assert len(pair) == 4 and pair[0].shape == pts.shape
+    assert [k.launches for k in _kernels.KERNELS] == [0, 0, 0]
     assert all(k._fn is None for k in _kernels.KERNELS)
 
 

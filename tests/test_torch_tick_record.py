@@ -11,7 +11,8 @@ the record off and on, the on run under torch.profiler for a few ticks.
     start, the counts consistent with the run;
   * the stage spans bracket the profiler's ranges of the same name within
     1 ms on the profiler's clock;
-  * the run CLI's --trace-out writes one JSON line per tick.
+  * the run CLI's --trace-out writes one JSON line per tick;
+  * a count read from the device (count_later) waits for its stage to close.
 
 Tolerances: none but the 1 ms of the clocks' agreement.
 """
@@ -202,6 +203,32 @@ def test_stage_spans_bracket_the_profiler_ranges(runs):
                 key=lambda s: abs(s[2] - start))
         assert abs(s[2] - start) < ms and abs(s[3] - end) < ms, \
             (name, s[2] - start, s[3] - end)
+
+
+def test_count_later_reads_when_the_stage_closes():
+    """A count that lives on the device (K3's iterations) is read only when
+    its stage, the outermost open span, has closed, and lands in that
+    stage; with no record active nothing is kept or read."""
+    reads = []
+
+    def read(n):
+        reads.append(n)
+        return n
+    tmet.count_later("lk_iters", lambda: read(5))     # no record: dropped
+    met = tmet.Metrics(record=True)
+    with met.recording():
+        key = met.begin_tick(1.0)
+        with met.span("frontend_event", key):
+            with tmet.span("frontend_event.temporal"):
+                tmet.count_later("lk_iters", lambda: read(7))
+            assert reads == []                        # stage still open
+            tmet.count_later("lk_iters", lambda: read(3))
+        assert reads == [7, 3]
+        tmet.count_later("lk_iters", lambda: read(2))  # outside every span
+        met.end_tick(key)
+    assert reads == [7, 3, 2]
+    assert met.ticks[0]["counts"]["lk_iters"] == {"frontend_event": 10,
+                                                  "pipeline": 2}
 
 
 def test_run_cli_trace_out_writes_one_line_per_tick(tmp_path):
