@@ -19,9 +19,10 @@ through the estimator's in-window relo solve).
 (utils/metrics.py): `PipelineResult.ticks` holds one line per tick, its
 spans (`tick`, `ingest`, the four stages and their `<stage>.<step>`
 sub-spans), the `pose` instant and its counts (host fetches, LK
-iterations, spacing sweeps, events offered and kept, kernel launches,
-graph captures and replays, lanes dropped, loops closed, pose-graph
-solves) and fields (keyframe, marginalization, solver flag, tracked).
+iterations, spacing sweeps, events offered and kept, frame bytes, kernel
+launches, graph captures and replays, lanes dropped, loops closed,
+pose-graph solves) and fields (frames offered and taken, keyframe,
+marginalization, solver flag, tracked).
 """
 from __future__ import annotations
 
@@ -111,8 +112,13 @@ def prep_frame(frame, height: int, width: int, device):
     """A frame as the image tracker takes it (getImageFromMsg,
     stereo_image_tracker_node.cpp:257-319): float32 on `device`, RGB
     converted to gray, resized bilinearly to (height, width) with
-    antialiasing as jax.image.resize(..., "linear") does."""
-    f = torch.as_tensor(np.asarray(frame), dtype=torch.float32, device=device)
+    antialiasing as jax.image.resize(..., "linear") does.  The frame goes
+    to the device in its own dtype (a uint8 frame as a quarter of the
+    bytes of float32) and is converted there; its bytes are the record's
+    count `frame_bytes`."""
+    a = np.asarray(frame)
+    count("frame_bytes", a.nbytes)
+    f = torch.as_tensor(a, device=device).to(torch.float32)
     if f.ndim == 3:
         f = f @ torch.tensor(_GRAY, dtype=torch.float32, device=device)
     if tuple(f.shape) != (height, width):
@@ -271,7 +277,7 @@ class Pipeline:
         cfg = self.sys_cfg
         cam_el = self.cams["event0"]
         cam_er = self.cams["event1"]
-        self._img_idx = 0
+        self._img_idx = self._img_seen = 0
         prev_t = None
         n = 0
         pending = None
@@ -323,7 +329,7 @@ class Pipeline:
                 self.tracker_state, pkt_evt = trk.track_event_stereo(
                     self.tracker_cfg, cam_el, cam_er, self.tracker_state,
                     ch_l, ch_r, t)
-            pkt_img = self._image_frontend(seq, t, tim, key)
+            pkt_img = self._image_frontend(seq, t, tim, met, key)
             stage = (prev_t, t, pkt_evt, pkt_img, self._img_idx, key)
             if overlap:
                 if pending is not None:
@@ -368,23 +374,31 @@ class Pipeline:
                 res.P_loop[k], res.Q_loop[k] = lc.correct_odometry(res.P[k],
                                                                    res.Q[k])
 
-    def _image_frontend(self, seq, t, tim, key=None):
+    def _image_frontend(self, seq, t, tim, met, key=None):
         """Pair the tick with the latest frame ≤ t and track it
         (sync_process semantics): each frame is consumed once and stamped
-        with its own time.  None when the tick brings no new frame."""
+        with its own time; frames between two ticks but the latest are
+        skipped.  None when the tick brings no new frame.  The record's
+        tick fields `frames_offered` (frames with a stamp ≤ t since the
+        last tick) and `frames_taken` (0 or 1)."""
         imgs = seq.images_left
         if self.sys_cfg.system_mode != 1 or imgs is None:
             return None
         stamps = imgs[0]
         while self._img_idx + 1 < len(stamps) and stamps[self._img_idx + 1] <= t:
             self._img_idx += 1
-        if not (stamps[self._img_idx] <= t
-                and self._img_idx != self._last_img_idx):
+        k = self._img_idx
+        seen = k + 1 if stamps[k] <= t else 0
+        take = seen > 0 and k != self._last_img_idx
+        met.tick_fields(key, frames_offered=seen - self._img_seen,
+                        frames_taken=int(take))
+        self._img_seen = seen
+        if not take:
             return None
-        self._last_img_idx = k = self._img_idx
+        self._last_img_idx = k
         cfg = self.img_tracker_cfg
         with tim("frontend_image", key):
-            with span("frontend_image.prep"):
+            with span("frontend_image.upload"):
                 frame_l = prep_frame(imgs[1][k], cfg.height, cfg.width,
                                      self.device)
                 frame_r = prep_frame(seq.images_right[1][k], cfg.height,

@@ -22,7 +22,9 @@ Under the per-tick record (utils/metrics.py) the steps are the sub-spans
 `frontend_event.sae` (1), `.temporal` (2-3), `.corners` (4, the corner
 harvest) and `.refill_stereo` (4-6: spacing, compaction, stereo LK,
 undistortion); the image path's are `frontend_image.prep` (CLAHE and the
-pyramids), `.temporal`, `.corners` (Shi-Tomasi) and `.refill_stereo`.
+pyramids), `.temporal`, `.corners` (Shi-Tomasi) and `.refill_stereo`,
+after the pipeline's `frontend_image.upload` (apps/pipeline.py: the two
+frames handed to the device, converted to float32 and resized).
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ integration_base.h:54-157).
 The sample buffer of each interval is integrated by a Python loop over the
 masked, fixed-capacity sample axis; intervals are a leading batch axis.
 The caller may stop the loop after the last real sample it knows of
-(trailing padding steps are no-ops by the mask).
+(trailing padding steps are no-ops by the mask), or run it a chunk of steps
+at a time from a `Carry` (`integrate_begin`, `integrate_steps`,
+`integrate_end`), as the estimator's tick graphs do.
 
 Error-state ordering: [p, θ, v, ba, bg]; noise ordering (18):
 [na0, ng0, na1, ng1, nba, nbg].
@@ -135,35 +137,44 @@ def midpoint_step(dt, acc_0, gyr_0, acc_1, gyr_1, delta_p, delta_q, delta_v,
     return result_p, result_q, result_v, new_jac, new_cov
 
 
-def preintegrate_batch(dts, accs, gyrs, acc0, gyr0, ba, bg,
-                       params: ImuParams, mask, n_steps=None) -> Preintegrated:
-    """Integrate K intervals at once.
+@dataclasses.dataclass
+class Carry:
+    """An integration between two steps (a leading batch of intervals):
+    the deltas so far, the last sample taken, and the next step's index."""
 
-    dts (K, N); accs/gyrs (K, N, 3) (acc_1 of each step); acc0/gyr0 (K, 3)
-    the sample at interval start; ba/bg (K, 3) linearization biases;
-    mask (K, N) bool — True for real samples (padding steps are skipped).
+    delta_p: torch.Tensor      # (K, 3)
+    delta_q: torch.Tensor      # (K, 4) wxyz
+    delta_v: torch.Tensor      # (K, 3)
+    jacobian: torch.Tensor     # (K, 15, 15)
+    covariance: torch.Tensor   # (K, 15, 15)
+    sum_dt: torch.Tensor       # (K,)
+    acc0: torch.Tensor         # (K, 3)
+    gyr0: torch.Tensor         # (K, 3)
+    step: torch.Tensor         # () int64
 
-    n_steps: how many leading steps to run (all N by default), at least the
-    longest interval's sample count: later steps are no-ops by the mask, so
-    any larger value gives the same result.  The estimator passes it from
-    its host-side sample counts."""
-    dtype, dev = accs.dtype, accs.device
-    K, N = dts.shape
-    noise = _noise_cov(params, dtype)
-    dts = dts.to(dtype)
-    mask = mask.to(torch.bool)
-    if n_steps is None:
-        n_steps = N
 
-    dp = torch.zeros((K, 3), dtype=dtype, device=dev)
-    dq = torch.eye(1, 4, dtype=dtype, device=dev).repeat(K, 1)
-    dv = torch.zeros((K, 3), dtype=dtype, device=dev)
-    jac = torch.eye(15, dtype=dtype, device=dev).repeat(K, 1, 1)
-    cov = torch.zeros((K, 15, 15), dtype=dtype, device=dev)
-    sum_dt = torch.zeros((K,), dtype=dtype, device=dev)
-    a0 = acc0.to(dtype)
-    g0 = gyr0.to(dtype)
-    for n in range(n_steps):
+def integrate_begin(acc0, gyr0, dtype) -> Carry:
+    """The carry before the first step: acc0/gyr0 (K, 3) the sample at
+    interval start."""
+    K, dev = acc0.shape[0], acc0.device
+    return Carry(
+        delta_p=torch.zeros((K, 3), dtype=dtype, device=dev),
+        delta_q=torch.eye(1, 4, dtype=dtype, device=dev).repeat(K, 1),
+        delta_v=torch.zeros((K, 3), dtype=dtype, device=dev),
+        jacobian=torch.eye(15, dtype=dtype, device=dev).repeat(K, 1, 1),
+        covariance=torch.zeros((K, 15, 15), dtype=dtype, device=dev),
+        sum_dt=torch.zeros((K,), dtype=dtype, device=dev),
+        acc0=acc0.to(dtype), gyr0=gyr0.to(dtype),
+        step=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _steps(c: Carry, dts, accs, gyrs, mask, ba, bg, noise) -> Carry:
+    """One midpoint step per column of dts (K, S), accs/gyrs (K, S, 3),
+    mask (K, S); a masked step leaves its interval as it was."""
+    dp, dq, dv, jac, cov = (c.delta_p, c.delta_q, c.delta_v, c.jacobian,
+                            c.covariance)
+    sum_dt, a0, g0 = c.sum_dt, c.acc0, c.gyr0
+    for n in range(dts.shape[1]):
         dt, a1, g1, m = dts[:, n], accs[:, n], gyrs[:, n], mask[:, n]
         ndp, ndq, ndv, njac, ncov = midpoint_step(
             dt, a0, g0, a1, g1, dp, dq, dv, ba, bg, jac, cov, noise)
@@ -176,9 +187,55 @@ def preintegrate_batch(dts, accs, gyrs, acc0, gyr0, ba, bg,
         sum_dt = torch.where(m, sum_dt + dt, sum_dt)
         a0 = torch.where(m1, a1, a0)
         g0 = torch.where(m1, g1, g0)
-    return Preintegrated(delta_p=dp, delta_q=dq, delta_v=dv, jacobian=jac,
-                         covariance=cov, sum_dt=sum_dt,
+    return Carry(dp, dq, dv, jac, cov, sum_dt, a0, g0,
+                 c.step + dts.shape[1])
+
+
+def integrate_steps(c: Carry, dts, accs, gyrs, mask, ba, bg,
+                    params: ImuParams, n: int) -> Carry:
+    """Steps c.step .. c.step + n - 1 of the sample buffers (shapes as
+    `preintegrate_batch`), the columns read at the carry's step index on
+    the device: the host need not know where the integration stands, so
+    one CUDA graph of n steps, replayed, runs any number of them.  A step
+    past the buffers is a no-op, as a masked one is."""
+    dtype, N = c.delta_p.dtype, dts.shape[1]
+    idx = c.step + torch.arange(n, device=dts.device)
+    inside = idx < N
+    idx = idx.clamp(max=N - 1)
+    return _steps(c, dts.index_select(1, idx).to(dtype),
+                  accs.index_select(1, idx).to(dtype),
+                  gyrs.index_select(1, idx).to(dtype),
+                  mask.index_select(1, idx).to(torch.bool) & inside,
+                  ba, bg, _noise_cov(params, dtype))
+
+
+def integrate_end(c: Carry, ba, bg) -> Preintegrated:
+    """The intervals integrated so far, at the linearization biases ba/bg."""
+    dtype = c.delta_p.dtype
+    return Preintegrated(delta_p=c.delta_p, delta_q=c.delta_q,
+                         delta_v=c.delta_v, jacobian=c.jacobian,
+                         covariance=c.covariance, sum_dt=c.sum_dt,
                          linearized_ba=ba.to(dtype), linearized_bg=bg.to(dtype))
+
+
+def preintegrate_batch(dts, accs, gyrs, acc0, gyr0, ba, bg,
+                       params: ImuParams, mask, n_steps=None) -> Preintegrated:
+    """Integrate K intervals at once.
+
+    dts (K, N); accs/gyrs (K, N, 3) (acc_1 of each step); acc0/gyr0 (K, 3)
+    the sample at interval start; ba/bg (K, 3) linearization biases;
+    mask (K, N) bool — True for real samples (padding steps are skipped).
+
+    n_steps: how many leading steps to run (all N by default), at least the
+    longest interval's sample count: later steps are no-ops by the mask, so
+    any larger value gives the same result.  The estimator passes it from
+    its host-side sample counts."""
+    dtype = accs.dtype
+    n = dts.shape[1] if n_steps is None else n_steps
+    c = _steps(integrate_begin(acc0, gyr0, dtype), dts[:, :n].to(dtype),
+               accs[:, :n], gyrs[:, :n], mask[:, :n].to(torch.bool), ba, bg,
+               _noise_cov(params, dtype))
+    return integrate_end(c, ba, bg)
 
 
 def preintegrate(dts, accs, gyrs, acc0, gyr0, ba, bg, params: ImuParams,

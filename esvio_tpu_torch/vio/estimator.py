@@ -153,16 +153,19 @@ def _fused_segment_a(ws, book_img, book_evt, prior, pkt_evt, pkt_img,
                      imu_dt, imu_acc, imu_gyr, a0s, g0s, imu_mask, imu_valid,
                      g, frozen, imu_params, min_parallax, *, has_img: bool,
                      iters: int, cauchy_c: float, sc: bool, kf_ex_idx: int,
-                     min_track: int, n_steps: int):
+                     min_track: int, n_steps: Optional[int], preints=None):
     """Segment A of the steady tick, with no host synchronisation: dead
     reckoning of slot W → packet insertion → parallax keyframe decision on
     the device → stereo + multiview triangulation → preintegration → LM
     window solve → gauge fix → failure soft reset → the `post` snapshot.
+    preints: the window's preintegration where the caller integrated it
+    (the tick graphs' chunks), else integrated here in n_steps steps.
     Returns (ws, book_img, book_evt, preints, post)."""
     W = WINDOW
-    preints = pre.preintegrate_batch(
-        imu_dt, imu_acc, imu_gyr, a0s, g0s, ws.Ba[:W], ws.Bg[:W],
-        imu_params, imu_mask, n_steps=n_steps)
+    if preints is None:
+        preints = pre.preintegrate_batch(
+            imu_dt, imu_acc, imu_gyr, a0s, g0s, ws.Ba[:W], ws.Bg[:W],
+            imu_params, imu_mask, n_steps=n_steps)
 
     # dead-reckon the incoming frame from interval W (slot W-1); a tick
     # without IMU copies the previous state (_propagate_new_frame)
@@ -274,11 +277,14 @@ def _fused_tick(ws, book_img, book_evt, prior, pkt_evt, pkt_img,
     return ws, book_img, book_evt, prior, post
 
 
-def _steps_bucket(n: int, capacity: int) -> int:
-    """The preintegration's step count for a longest interval of n samples:
-    the next power of two from 16, at most the capacity, so a few CUDA
-    graphs cover every tick (the masked steps past n are no-ops)."""
-    return min(capacity, max(16, 1 << (max(n, 1) - 1).bit_length()))
+# preintegration steps in one of the tick graphs' chunks (`_preint_chunk`)
+_PREINT_CHUNK = 16
+
+
+def _preint_chunks(n: int) -> int:
+    """The chunks that integrate a longest interval of n samples: at least
+    one, the head graph, which starts the integration."""
+    return -(-max(n, 1) // _PREINT_CHUNK)
 
 
 class Estimator:
@@ -534,15 +540,30 @@ class Estimator:
             t(packet.un_right), t(packet.vel_right),
             torch.zeros_like(self.ws.td), frame_idx)
 
-    def _segment_a(self, state, x, **kw):
+    def _segment_a(self, state, x, carry=None, **kw):
         """`_fused_segment_a` on state (ws, book_img, book_evt, prior) and
-        the per-tick input tensors x (order of `_input_dtypes`)."""
+        the per-tick input tensors x (order of `_input_dtypes`), with the
+        preintegration of `carry` when one is given."""
         n = 14 if kw["has_img"] else 7
         pe = tuple(x[:7])
         pi = tuple(x[7:n]) if kw["has_img"] else pe
         r = x[n:]
+        ws = state[0]
+        preints = None if carry is None else pre.integrate_end(
+            carry, ws.Ba[:WINDOW], ws.Bg[:WINDOW])
         return _fused_segment_a(*state, pe, pi, *r[:6], r[6], self.g, r[7],
-                                self.imu_params, r[8], **kw)
+                                self.imu_params, r[8], preints=preints, **kw)
+
+    def _preint_chunk(self, state, x, carry):
+        """_PREINT_CHUNK steps of the window's preintegration from carry
+        (from the start when None) on the per-tick inputs x."""
+        dts, accs, gyrs, a0s, g0s, mask = x[len(x) - 9:len(x) - 3]
+        ws = state[0]
+        if carry is None:
+            carry = pre.integrate_begin(a0s, g0s, self.cfg.dtype)
+        return pre.integrate_steps(carry, dts, accs, gyrs, mask,
+                                   ws.Ba[:WINDOW], ws.Bg[:WINDOW],
+                                   self.imu_params, _PREINT_CHUNK)
 
     def _process_packets_fused(self, t: float, pkt_evt, pkt_img) -> Output:
         """Steady NON_LINEAR tick through `_fused_tick`: segment A (a CUDA
@@ -557,9 +578,8 @@ class Estimator:
         kw = dict(has_img=has_img, iters=cfg.solver_iters, cauchy_c=cfg.cauchy_c,
                   sc=cfg.use_stereo_correction,
                   kf_ex_idx=1 if (cfg.mode == "esio" or not self._seen_img) else 0,
-                  min_track=cfg.min_track_for_kf,
-                  n_steps=_steps_bucket(int(self.imu_n[1:].max()),
-                                        cfg.imu_capacity))
+                  min_track=cfg.min_track_for_kf)
+        n_steps = int(self.imu_n[1:].max())
         pkts = (pkt_evt, pkt_img) if has_img else (pkt_evt,)
         inputs = tuple(getattr(p, f) for p in pkts for f in _PKT_FIELDS) + (
             self.imu_dt[1:], self.imu_acc[1:], self.imu_gyr[1:], a0s, g0s,
@@ -571,13 +591,17 @@ class Estimator:
             if self._graphs is None:
                 x = [torch.as_tensor(v, device=self.device).to(d)
                      for v, d in zip(inputs, dtypes)]
-                ws, bi, be, preints, post_d = self._segment_a(state, x, **kw)
+                ws, bi, be, preints, post_d = self._segment_a(
+                    state, x, n_steps=n_steps, **kw)
                 packed, layout = pack_post(post_d)
             else:
+                # the step count is no part of the key: the preintegration
+                # runs in chunks of graphs, as many as the longest interval
                 x, (ws, bi, be), preints, packed, layout = self._graphs.run(
                     tuple(sorted(kw.items())),
-                    functools.partial(self._segment_a, **kw),
-                    state, inputs, dtypes)
+                    functools.partial(self._segment_a, n_steps=None, **kw),
+                    state, inputs, dtypes, chunk=self._preint_chunk,
+                    n_chunks=_preint_chunks(n_steps))
         with span("estimator.fetch"):
             post = fetch_post(packed, layout)      # the ONE fetch of this tick
         marg_flag = MARGIN_OLD if bool(post["marg_old"]) else MARGIN_SECOND_NEW

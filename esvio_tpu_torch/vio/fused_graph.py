@@ -1,11 +1,16 @@
 """Segment A of the steady estimator tick as CUDA graphs: the port's form of
 the one `jax.jit` dispatch of esvio_tpu's `_fused_tick`.
 
-One graph per static key (the keyword arguments of `_fused_segment_a`,
-among them the preintegration's bucketed step count, and the per-tick
-input shapes), captured at the key's first tick and replayed on every
-later one:
+One graph per static key (the keyword arguments of `_fused_segment_a`
+and the per-tick input shapes), captured at the key's first tick and
+replayed on every later one:
 
+  * the IMU preintegration runs before it in two small graphs of a fixed
+    chunk of steps, `head` from the start and `more` from where the last
+    left off (the step index lives on the device), the latter replayed as
+    often as the tick's longest interval asks: the step count, which
+    grows with every tick that is not a keyframe, is no part of the key,
+    so no tick past the first captures anew;
   * the state (window, both books, prior) lives in static device buffers;
     the graph writes the solved window and books back into them by `copy_`,
     and the estimator hands segment B's results to `adopt`, which does the
@@ -95,15 +100,38 @@ def _copy_into(dst_states, src_states):
             d.copy_(s)
 
 
+def _graph(fn):
+    """(graph, fn's output, the kernel launches it holds): fn captured
+    with garbage collection off; the launch counters are set back."""
+    before = {k: k.launches for k in _kernels.KERNELS}
+    graph = torch.cuda.CUDAGraph()
+    # no garbage collection inside the capture: a dead pipeline's graph,
+    # destroyed mid-capture by a collection in any thread, invalidates it
+    gc_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    finally:
+        if gc_on:
+            gc.enable()
+    launches = {k: k.launches - before[k] for k in _kernels.KERNELS}
+    for k in _kernels.KERNELS:
+        k.launches = before[k]
+    return graph, out, launches
+
+
 class _Capture:
-    """One captured segment A: its static inputs, graph, outputs and the
-    kernel launches it holds."""
+    """One captured segment A: its static inputs, graphs, outputs and the
+    kernel launches they hold.  Two graphs of the chunk run before segment
+    A's: `head`, from no carry, and `more`, from the carry, which it
+    updates in place."""
 
     def __init__(self, device, inputs, dtypes):
         self.x = [torch.empty(tuple(np.shape(v)), dtype=d, device=device)
                   for v, d in zip(inputs, dtypes)]
         self.host = {}
-        self.graph = None
+        self.graphs = {}
         self.replays = 0
 
     def stage(self, inputs):
@@ -117,35 +145,40 @@ class _Capture:
                 v = h
             dst.copy_(v, non_blocking=True)
 
-    def capture(self, segment, state):
+    def capture(self, segment, state, chunk):
         dev = self.x[0].device
         # one eager run on a side stream first: lazy initialisation (library
         # handles, workspaces, kernel attributes) must not fall in the capture
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            segment(state, self.x)
+            segment(state, self.x,
+                    chunk(state, self.x, chunk(state, self.x, None)))
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = {k: k.launches for k in _kernels.KERNELS}
-        self.graph = torch.cuda.CUDAGraph()
-        # no garbage collection inside the capture: a dead pipeline's graph,
-        # destroyed mid-capture by a collection in any thread, invalidates it
-        gc_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph):
-                ws, bi, be, preints, post = segment(state, self.x)
-                self.packed, self.layout = pack_post(post)
-                # preints holds views of the static window (its linearization
-                # biases are ws.Ba/Bg[:W]): copied out before the write-back
-                self.preints = clone_state(preints)
-                _copy_into(state[:3], (ws, bi, be))
-        finally:
-            if gc_on:
-                gc.enable()
-        self.launches = {k: k.launches - before[k] for k in _kernels.KERNELS}
-        for k in _kernels.KERNELS:
-            k.launches = before[k]
+        g, self.carry, n = _graph(lambda: chunk(state, self.x, None))
+        self.graphs["head"] = (g, n)
+        g, _, n = _graph(lambda: _copy_into(
+            [self.carry], [chunk(state, self.x, self.carry)]))
+        self.graphs["more"] = (g, n)
+
+        def seg():
+            ws, bi, be, preints, post = segment(state, self.x, self.carry)
+            self.packed, self.layout = pack_post(post)
+            # preints holds views of the static window (its linearization
+            # biases are ws.Ba/Bg[:W]): copied out before the write-back
+            self.preints = clone_state(preints)
+            _copy_into(state[:3], (ws, bi, be))
+        g, _, n = _graph(seg)
+        self.graphs["main"] = (g, n)
+
+    def replay(self, n_chunks):
+        """head, more n_chunks - 1 times, then main."""
+        for name in ["head"] + ["more"] * (n_chunks - 1) + ["main"]:
+            graph, launches = self.graphs[name]
+            graph.replay()
+            for k, n in launches.items():
+                k.launches += n
+        self.replays += 1
 
 
 class TickGraphs:
@@ -172,25 +205,24 @@ class TickGraphs:
         """[(static keyword arguments as a dict, replays)] per capture."""
         return [(dict(k[0]), cap.replays) for k, cap in self._caps.items()]
 
-    def run(self, key, segment, state, inputs, dtypes):
-        """Segment A by graph replay: `segment(state, x)` computes it from
-        the static state and the static inputs x, which `inputs` (numpy
-        arrays or tensors, in order) are staged into.  Returns (x,
-        (ws, book_img, book_evt), preints, packed, layout), all static."""
+    def run(self, key, segment, state, inputs, dtypes, chunk, n_chunks):
+        """Segment A by graph replay: `segment(state, x, carry)` computes it
+        from the static state, the static inputs x, which `inputs` (numpy
+        arrays or tensors, in order) are staged into, and the carry of
+        `chunk(state, x, carry)` run n_chunks times from carry None.
+        Returns (x, (ws, book_img, book_evt), preints, packed, layout), all
+        static."""
         state = self.adopt(state)
         key = (key, tuple(tuple(np.shape(v)) for v in inputs))
         cap = self._caps.get(key)
         if cap is None:
             cap = _Capture(self.device, inputs, dtypes)
             cap.stage(inputs)
-            cap.capture(segment, state)
+            cap.capture(segment, state, chunk)
             self._caps[key] = cap
             self.n_captures += 1
         else:
             cap.stage(inputs)
-        cap.graph.replay()
-        cap.replays += 1
+        cap.replay(n_chunks)
         self.n_replays += 1
-        for k, n in cap.launches.items():
-            k.launches += n
         return cap.x, state[:3], cap.preints, cap.packed, cap.layout

@@ -210,6 +210,30 @@ def render_plane(tex, margin, H, W, focal, cx, cy, R_wc, t_wc, plane_z,
             + tex[y0 + 1, x0] * fy * (1 - fx) + tex[y0 + 1, x0 + 1] * fy * fx)
 
 
+# the rig's path in planar_vio_sequence_rot: a circle of PLANAR_RADIUS m at
+# PLANAR_HZ, and a roll / pitch wobble at PLANAR_WOBBLE_HZ and 0.77 of it
+PLANAR_RADIUS, PLANAR_HZ, PLANAR_WOBBLE_HZ = 0.4, 0.5, 0.9
+
+
+def planar_rot_position(t):
+    """p_wb (N, 3) of planar_vio_sequence_rot's rig t seconds after its
+    start."""
+    th = 2 * np.pi * PLANAR_HZ * t
+    return np.stack([PLANAR_RADIUS * np.sin(th),
+                     PLANAR_RADIUS * (np.cos(th) - 1.0), np.zeros_like(t)], -1)
+
+
+def planar_rot_rotation(t, rot_amp_deg=4.0):
+    """R_wb (N, 3, 3) of planar_vio_sequence_rot's rig (its camera axes) t
+    seconds after its start."""
+    t = np.atleast_1d(t)
+    amp = np.deg2rad(rot_amp_deg)
+    wr = PLANAR_WOBBLE_HZ
+    return so3_exp(np.stack([amp * np.sin(2 * np.pi * wr * t),
+                             amp * np.sin(2 * np.pi * wr * 0.77 * t + 1.0),
+                             np.zeros_like(t)], -1))
+
+
 def planar_vio_sequence_rot(rng, H=120, W=160, focal=200.0, plane_z=4.0,
                             baseline=0.10, duration=2.0, imu_hz=200,
                             event_hz=400, g_norm=9.80766, rot_amp_deg=4.0,
@@ -236,14 +260,8 @@ def planar_vio_sequence_rot(rng, H=120, W=160, focal=200.0, plane_z=4.0,
     tex_cx = tex.shape[1] / 2
     tex_cy = tex.shape[0] / 2
     cx, cy = W / 2, H / 2
-    wc, wr = 0.5, 0.9
-    radius = 0.4
-    amp = np.deg2rad(rot_amp_deg)
-
-    def pos(t):
-        th = 2 * np.pi * wc * t
-        return np.stack([radius * np.sin(th), radius * (np.cos(th) - 1.0),
-                         np.zeros_like(t)], -1)
+    wc, radius = PLANAR_HZ, PLANAR_RADIUS
+    pos = planar_rot_position
 
     def accel_w(t):
         th = 2 * np.pi * wc * t
@@ -251,13 +269,8 @@ def planar_vio_sequence_rot(rng, H=120, W=160, focal=200.0, plane_z=4.0,
         return np.stack([-k * radius * np.sin(th), -k * radius * np.cos(th),
                          np.zeros_like(t)], -1)
 
-    def rotvec(t):
-        return np.stack([amp * np.sin(2 * np.pi * wr * t),
-                         amp * np.sin(2 * np.pi * wr * 0.77 * t + 1.0),
-                         np.zeros_like(t)], -1)
-
     def rot(t):
-        return so3_exp(rotvec(np.atleast_1d(t)))
+        return planar_rot_rotation(t, rot_amp_deg)
 
     t0 = 1.0
     imu_t = np.arange(t0, t0 + duration, 1.0 / imu_hz)

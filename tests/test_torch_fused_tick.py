@@ -163,7 +163,7 @@ def _port_tick(args, kw):
         *(t(a) for a in (imu_dt, imu_acc, imu_gyr, a0s, g0s, mask, imu_valid,
                          g, frozen)),
         to_torch(imu_params, tpre.ImuParams), t(min_par), **kw,
-        n_steps=test_._steps_bucket(n, mask.shape[1]))
+        n_steps=n)
 
 
 def _normal(J0, r0):
@@ -274,5 +274,7 @@ def test_post_packs_into_one_fetch():
 
 
 def test_steps_bucket():
-    assert [test_._steps_bucket(n, 512) for n in (0, 1, 13, 16, 17, 40, 600)] \
-        == [16, 16, 16, 16, 32, 64, 512]
+    """The tick graphs' preintegration chunks for the longest interval's
+    sample count: one at least (the head), then one per 16 samples."""
+    assert [test_._preint_chunks(n) for n in (0, 1, 13, 16, 17, 40, 512)] \
+        == [1, 1, 1, 1, 2, 3, 32]

@@ -9,6 +9,7 @@ biases exact.
 """
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from torch_parity import np_f32, rel_err, to_torch
@@ -97,9 +98,9 @@ def test_evaluate_matches(rng):
 
 
 def test_preintegrate_batch_with_host_step_count(rng):
-    """n_steps from the host (the longest interval's count, or the fused
-    tick's bucketed count) gives the all-steps result exactly: steps past
-    the last real sample are no-ops."""
+    """n_steps from the host (the longest interval's count, or any larger
+    one) gives the all-steps result exactly: steps past the last real
+    sample are no-ops."""
     tp = tpre.make_imu_params()
     ivs = [_interval(rng, n_real=n_real) for n_real in (20, 7, 0, 13)]
     dts, acc, gyr, mask = (torch.tensor(np.stack(x)) for x in zip(*ivs))
@@ -111,3 +112,24 @@ def test_preintegrate_batch_with_host_step_count(rng):
         got = tpre.preintegrate_batch(*args, n_steps=n)
         for f in FIELDS + ("sum_dt",):
             assert torch.equal(getattr(got, f), getattr(want, f)), (n, f)
+
+
+@pytest.mark.parametrize("chunk", [16, 7])
+def test_chunked_integration_matches_the_batch(rng, chunk):
+    """integrate_steps a chunk at a time from a Carry (the tick graphs'
+    head and more) gives preintegrate_batch's result exactly, also where
+    the last chunk runs past the 80-sample buffers (chunk 7: 12 chunks)."""
+    tp = tpre.make_imu_params()
+    ivs = [_interval(rng, n_real=n_real) for n_real in (20, 7, 0, 80)]
+    dts, acc, gyr, mask = (torch.tensor(np.stack(x)) for x in zip(*ivs))
+    ba = torch.tensor(np_f32(rng.normal(0, 0.05, (4, 3))))
+    bg = torch.tensor(np_f32(rng.normal(0, 0.01, (4, 3))))
+    want = tpre.preintegrate_batch(dts, acc, gyr, acc[:, 0], gyr[:, 0], ba,
+                                   bg, tp, mask)
+    c = tpre.integrate_begin(acc[:, 0], gyr[:, 0], torch.float32)
+    for _ in range(-(-80 // chunk)):
+        c = tpre.integrate_steps(c, dts, acc, gyr, mask, ba, bg, tp, chunk)
+    assert int(c.step) == -(-80 // chunk) * chunk
+    got = tpre.integrate_end(c, ba, bg)
+    for f in FIELDS + ("sum_dt", "linearized_ba", "linearized_bg"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -9,6 +9,8 @@ the record off and on, the on run under torch.profiler for a few ticks.
   * on, one line per tick, every span inside its parent and its tick, the
     hand-over before every stage and the pose after the estimator stage's
     start, the counts consistent with the run;
+  * the frame hand-over is its own span, `frontend_image.upload`, with
+    the frames offered and taken and their bytes;
   * the stage spans bracket the profiler's ranges of the same name within
     1 ms on the profiler's clock;
   * the run CLI's --trace-out writes one JSON line per tick;
@@ -88,7 +90,7 @@ def runs():
     box = {}
     on = on_pipe.run(seq, chunk_pairs=_profiled(pairs(), box))
     return dict(off=off, on=on, entered=entered, null_span=null_span,
-                outs=outs, prof=box["prof"])
+                outs=outs, prof=box["prof"], seq=seq)
 
 
 def test_record_leaves_the_run_unchanged(runs):
@@ -203,6 +205,30 @@ def test_stage_spans_bracket_the_profiler_ranges(runs):
                 key=lambda s: abs(s[2] - start))
         assert abs(s[2] - start) < ms and abs(s[3] - end) < ms, \
             (name, s[2] - start, s[3] - end)
+
+
+def test_frame_upload_is_its_own_span(runs):
+    """The pipeline's frame hand-over is the span `frontend_image.upload`
+    inside `frontend_image`, before and apart from the tracker's
+    `frontend_image.prep`, and a profiler range; a tick that takes a frame
+    counts the two frames' bytes in its image stage."""
+    lines, seq = runs["on"].ticks, runs["seq"]
+    nbytes = seq.images_left[1][0].nbytes + seq.images_right[1][0].nbytes
+    assert any(l["frames_taken"] for l in lines)
+    for line in lines:
+        spans = {s[0]: s for s in line["spans"]}
+        assert line["frames_taken"] in (0, 1)
+        assert line["frames_offered"] >= line["frames_taken"]
+        if not line["frames_taken"]:
+            assert "frontend_image" not in spans
+            continue
+        stage, up, prep = (spans[n] for n in (
+            "frontend_image", "frontend_image.upload", "frontend_image.prep"))
+        assert up[1] == "frontend_image"
+        assert stage[2] <= up[2] <= up[3] <= prep[2] <= prep[3] <= stage[3]
+        assert line["counts"]["frame_bytes"]["frontend_image"] == nbytes
+    names = {e.name() for e in runs["prof"].profiler.kineto_results.events()}
+    assert "frontend_image.upload" in names
 
 
 def test_count_later_reads_when_the_stage_closes():
