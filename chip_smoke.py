@@ -10,7 +10,10 @@ ways by CUDA events: bare (the C entry point alone, launches captured in a
 CUDA graph), as the main path calls it (the wrapper), the plain version,
 and the one PyTorch call that computes the same function where there is
 one.  (chip_ab.py times other versions of the kernel sources against
-these in turns.)
+these in turns.)  Kernel K4, the LM window's normal-equation assembly, is
+held against the plain assembly in float64 (tests/assemble_cases.py), and
+segment A's three graphs are timed apart with it and with the plain
+assembly.
 It then drives the ESIO pipeline (stereo events + IMU -> trajectory)
 through `Pipeline.run` at the golden and at the bench size on the default
 fused path (segment A of every steady estimator tick a CUDA graph replay),
@@ -452,6 +455,119 @@ def phase_lk_track(device):
             f"{ms * 1e3 / max(sum(out['k3_iters']), 1):.2f} us each)")
     log("phase 3b LK pair K3: ok")
     return rows[lk_cases.CASES[0]]
+
+
+# ---------------------------------------------------------------- phase 3c
+def _segment_a_split(device, plain: bool, reps: int = 20):
+    """Device ms of each of segment A's graphs (head, more, main), replayed
+    apart on a steady window of the tick-graph drive
+    (tests/test_torch_tick_graphs_card.py) with the books at the fused
+    tick's 128 + 128 lanes, and the chunks of its last tick; with
+    plain=True the graphs were captured with the plain assembly."""
+    import numpy as np
+    import torch
+    import synth_np
+    from esvio_tpu_torch.solver import gauss_newton as gn
+    from esvio_tpu_torch.solver import window as win
+    from esvio_tpu_torch.vio import estimator as em
+    orig = gn.assemble_normal_reduced
+    if plain:
+        gn.assemble_normal_reduced = gn.assemble_normal_reduced_plain
+    try:
+        rng = np.random.default_rng(0)
+        traj = synth_np.simulate_trajectory(rng, n_frames=20, imu_per_frame=20,
+                                            frame_dt=0.05)
+        lms = synth_np.make_world(rng, traj)
+        B = synth_np.EST_BASELINE
+        ex_p = np.array([[0, 0, 0], [0, 0, 0], [B, 0, 0], [B, 0, 0]], float)
+        ex_q = np.tile(np.array([1.0, 0, 0, 0]), (4, 1))
+        est = em.Estimator(em.EstimatorConfig(mode="esio", evt_capacity=128,
+                                              img_capacity=128,
+                                              min_track_for_kf=15),
+                           ex_p, ex_q, device)
+        seen, chunks = set(), 0
+        for f in range(len(traj["t"])):
+            pkt, seen = synth_np.packet_for_frame(traj, f, lms, seen,
+                                                  0.3 / 460.0, rng)
+            if f > 0:
+                synth_np.feed_imu(est, traj, f)
+            if est.solver_flag == "NON_LINEAR" and est.frame_count == win.WINDOW:
+                chunks = em._preint_chunks(int(est.imu_n[1:].max()))
+            est.process_packets(traj["t"][f], pkt)
+    finally:
+        gn.assemble_normal_reduced = orig
+    if est._graphs is None or est._graphs.n_replays == 0:
+        raise AssertionError("segment A split: no steady tick replayed a graph")
+    cap = next(iter(est._graphs._caps.values()))
+    out = {}
+    for name in ("head", "more", "main"):
+        graph = cap.graphs[name][0]
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / reps
+    return out, chunks
+
+
+def phase_normal_assembly(device):
+    """K4 against the float64 plain assembly in every case of
+    tests/assemble_cases.py (cases, tolerance and its reason there) and bit
+    for bit against itself; then its time at the fused path's shapes (one
+    window, 128 + 128 lanes): bare (the C entry point alone, launches in a
+    CUDA graph), as the main path calls it (assemble_cuda), the plain
+    assembly's in a CUDA graph (as segment A ran it) and eagerly (as
+    segment B ran it), and the bound of K4's bytes and FLOP
+    (normal_assembly.work); then segment A's graphs apart, with K4 and
+    with the plain assembly."""
+    import ctypes
+    import torch
+    import assemble_cases as ac
+    from esvio_tpu_torch import _kernels
+    from esvio_tpu_torch.solver import gauss_newton as gn
+    from esvio_tpu_torch.solver import normal_assembly as na
+    from esvio_tpu_torch.utils.metrics import graph_ms
+    for case in ac.CASES:
+        errs, _ = ac.compare(case, device)
+        log(f"  K4 normal_assembly {case}: within "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + " of the float64 plain assembly; two calls equal bit for bit")
+    args, kw = ac.problem("window", device)
+    ins, outs, (B, L_img, L_evt) = na.kernel_tensors(*args, **kw)
+    ptrs = (ctypes.c_uint64 * len(na.ARGS))(
+        *[(ins[n] if n in ins else outs[n]).data_ptr() for n in na.ARGS])
+    c = ctypes.c_float(1.0)
+    fn = _kernels.NORMAL_ASSEMBLY.fn()
+    launch = lambda: fn(ctypes.addressof(ptrs), ctypes.addressof(c), B, L_img,
+                        L_evt, _kernels.stream_ptr(device))
+    ms = graph_ms(launch, reps=50)
+    wrapper_ms = _timed(lambda: na.assemble_cuda(*args, **kw), reps=100)
+    plain_graph_ms = graph_ms(
+        lambda: gn.assemble_normal_reduced_plain(*args, **kw), reps=3)
+    plain_ms = _timed(lambda: gn.assemble_normal_reduced_plain(*args, **kw),
+                      reps=5, warmup=2)
+    n_bytes, flop = na.work(L_img + L_evt)
+    bound_ms, bound_by = _bound(n_bytes, flop, PEAK_F32)
+    log(f"  K4 normal_assembly {L_img} + {L_evt} lanes, B = 1: bare "
+        f"{ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_graph_ms:.3f} "
+        f"ms in a graph / {plain_ms:.3f} ms eager; {n_bytes} bytes, {flop} "
+        f"FLOP, bound {bound_ms * 1e3:.3f} us ({bound_by}, "
+        f"{bound_ms / ms:.2%} reached)")
+    for plain in (False, True):
+        t, n = _segment_a_split(device, plain)
+        log(f"  segment A graphs, {'plain assembly' if plain else 'K4'}: head "
+            f"{t['head']:.3f} ms, more {t['more']:.3f} ms, main "
+            f"{t['main']:.3f} ms; a tick of {n} chunks: preintegration "
+            f"{t['head'] + (n - 1) * t['more']:.3f} ms, main {t['main']:.3f} ms")
+    log("phase 3c normal assembly K4: ok")
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_graph_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=None)
 
 
 # ---------------------------------------------------------------- phase 4/5
@@ -2711,14 +2827,15 @@ def main():
     k1 = _phase(phase_corner_mask, device, K1_SHAPES, (240, 320), peak_cmp)
     k2 = _phase(phase_chol, device)
     k3 = _phase(phase_lk_track, device)
+    k4 = _phase(phase_normal_assembly, device)
     pool = _prerender()
     try:
-        return _later_phases(device, t_start, k1, k2, k3)
+        return _later_phases(device, t_start, k1, k2, k3, k4)
     finally:
         pool.shutdown(cancel_futures=True)
 
 
-def _later_phases(device, t_start, k1, k2, k3):
+def _later_phases(device, t_start, k1, k2, k3, k4):
     """Phases 4-27, the kernels line and the last line."""
     import torch
     from esvio_tpu_torch import _kernels
@@ -2760,7 +2877,7 @@ def _later_phases(device, t_start, k1, k2, k3):
     # 10) and the ESIO one (phase 5)
     kernels = []
     for k, row in ((_kernels.CORNER_MASK, k1), (_kernels.CHOL_SOLVE, k2),
-                   (_kernels.LK_TRACK, k3)):
+                   (_kernels.LK_TRACK, k3), (_kernels.NORMAL_ASSEMBLY, k4)):
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches_l[k.name],

@@ -46,6 +46,7 @@ SIGNATURES = {
     "esv_chol_solve": ("ptr", "ptr", "ptr", "ptr", "int", "ptr"),
     "esv_lk_track": ("ptr", "ptr", "int", "ptr", "ptr", "ptr", "ptr", "ptr",
                      "ptr", "int", "int", "ptr", "ptr"),
+    "esv_normal_assembly": ("ptr", "ptr", "int", "int", "int", "ptr"),
 }
 _CTYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int}
 
@@ -91,7 +92,12 @@ LK_TRACK = Kernel(
     "lk_track", "esv_lk_track", "esvio_tpu_torch/csrc/lk_track.cu",
     "no Pallas kernel: JAX's LK is a jitted lax.while_loop "
     "(esvio_tpu/frontend/lk.py:145)")
-KERNELS = (CORNER_MASK, CHOL_SOLVE, LK_TRACK)
+NORMAL_ASSEMBLY = Kernel(
+    "normal_assembly", "esv_normal_assembly",
+    "esvio_tpu_torch/csrc/normal_assembly.cu",
+    "no Pallas kernel: JAX's assembly is XLA "
+    "(esvio_tpu/solver/gauss_newton.py:671 assemble_normal_reduced)")
+KERNELS = (CORNER_MASK, CHOL_SOLVE, LK_TRACK, NORMAL_ASSEMBLY)
 
 
 class HostLib(Kernel):

@@ -246,6 +246,7 @@ class Pipeline:
                 k1_launches=lambda: _kernels.CORNER_MASK.launches,
                 k2_launches=lambda: _kernels.CHOL_SOLVE.launches,
                 lk_launches=lambda: _kernels.LK_TRACK.launches,
+                k4_launches=lambda: _kernels.NORMAL_ASSEMBLY.launches,
                 graph_captures=lambda: graphs().n_captures if graphs() else 0,
                 graph_replays=lambda: graphs().n_replays if graphs() else 0,
                 lanes_dropped=lambda: self.estimator.lanes_dropped,

@@ -5,7 +5,9 @@ elimination (port of the live part of esvio_tpu/solver/gauss_newton.py).
     is one row of a unified (L, 2F+1) table evaluated with ONE two-frame
     two-camera Jacobian (`_proj_factor_table`);
   * the normal equations come out in Schur-ready form (Hpp, Hpl, hll, bp,
-    bl) — inverse depths have a diagonal block by construction;
+    bl) — inverse depths have a diagonal block by construction; on the
+    card kernel K4 assembles them (`assemble_normal_reduced`, closed-form
+    Jacobians), elsewhere the plain version with forward-mode ones;
   * Levenberg-Marquardt with deferred acceptance on the Jacobi-scaled
     reduced camera system, solved by kernel K2 (`reduced_solve`);
   * `solve_window_relo`: the same LM with the in-window relocalization
@@ -34,7 +36,7 @@ import torch
 
 from esvio_tpu_torch.core import lie
 from esvio_tpu_torch.imu import preintegration as pre
-from esvio_tpu_torch.solver import factors
+from esvio_tpu_torch.solver import factors, normal_assembly
 from esvio_tpu_torch.solver.chol_solve import chol_solve_batched
 from esvio_tpu_torch.solver.window import (
     DIM_ALL, N_EX, N_STATES, OFF_EX, OFF_SB, OFF_TD, WINDOW,
@@ -173,7 +175,7 @@ def _proj_inputs(state: WindowState, book: FeatureBook, exl: int, exr: int):
 
 
 def _proj_factor_table(state: WindowState, book: FeatureBook, exl: int,
-                       exr: int, cauchy_c: float):
+                       exr: int, cauchy_c: float, jac=factors.proj22_jac):
     """All mono + cross + static factors of a book through ONE proj22
     Jacobian: mono = two-cam with ex1 := ex0 (its ∂/∂ex0 and ∂/∂ex1 blocks
     sum to the shared-extrinsic derivative), static = two-frame with
@@ -181,12 +183,13 @@ def _proj_factor_table(state: WindowState, book: FeatureBook, exl: int,
 
     Returns (r (*lead,L,M,2), J (*lead,L,M,2,26), jidx (*lead,L,M),
     start (*lead,L)), Cauchy
-    weights and masks folded into r and J, mono ex1 block folded."""
+    weights and masks folded into r and J, mono ex1 block folded.  `jac`
+    takes the table's Jacobian (the tests pass the closed-form one)."""
     dtype = state.P.dtype
     F = N_STATES
     M = 2 * F + 1
     args, mask, jidx, start = _proj_inputs(state, book, exl, exr)
-    r, J = factors.proj22_jac(*args)
+    r, J = jac(*args)
 
     w = factors.cauchy_weight(torch.sum(r * r, -1), cauchy_c) * mask.to(dtype)
     r = r * w[..., None]
@@ -218,7 +221,26 @@ def assemble_normal_reduced(state: WindowState, book_img: FeatureBook,
                             prior_H=None, imu_sqrt=None):
     """Normal equations in Schur-ready form: (Hpp, Hpl, hll, bp, bl, cost):
     the camera system Hpp (190²), the camera-landmark coupling Hpl
-    (190 × L), the diagonal landmark block hll (L,) and the gradient."""
+    (190 × L), the diagonal landmark block hll (L,) and the gradient.
+    Kernel K4 on float32 CUDA tensors, the plain version otherwise (the
+    CPU, float64), as `reduced_solve` routes K2."""
+    if state.P.is_cuda and state.P.dtype == torch.float32:
+        return normal_assembly.assemble_cuda(
+            state, book_img, book_evt, preints, imu_valid, prior, g, cauchy_c,
+            prior_H=prior_H, imu_sqrt=imu_sqrt)
+    return assemble_normal_reduced_plain(
+        state, book_img, book_evt, preints, imu_valid, prior, g, cauchy_c,
+        prior_H=prior_H, imu_sqrt=imu_sqrt)
+
+
+def assemble_normal_reduced_plain(state: WindowState, book_img: FeatureBook,
+                                  book_evt: FeatureBook,
+                                  preints: pre.Preintegrated, imu_valid,
+                                  prior: Prior, g, cauchy_c: float = 1.0,
+                                  prior_H=None, imu_sqrt=None):
+    """`assemble_normal_reduced` in plain PyTorch: the factor Jacobians in
+    forward mode, spread to the 91 projection columns by one-hot products
+    and placed slice by slice into the DIM_ALL layout."""
     dtype, dev = state.P.dtype, state.P.device
     lead = state.td.shape
     L_img = book_img.un.shape[-3]

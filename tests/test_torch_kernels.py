@@ -1,11 +1,11 @@
-"""The port's three CUDA kernels from the CPU side: their C interface
+"""The port's four CUDA kernels from the CPU side: their C interface
 against the ctypes declarations, their wrappers' refusals (a wrapper given a
 tensor it cannot launch on raises; it never falls back), the CPU dispatch to
 the plain versions, and those plain versions at the shapes the card runs.
 
 The kernels themselves build and run only on the card (chip_smoke.py,
-phases 2, 3 and 3b; tests/test_torch_lk_card.py); nothing here needs nvcc
-or a GPU.
+phases 2, 3, 3b and 3c; tests/test_torch_lk_card.py,
+tests/test_torch_assemble_card.py); nothing here needs nvcc or a GPU.
 
 Tolerances: corner masks exact; Cholesky solves relative error < 5e-5
 against float64 numpy and against the JAX solver (the gate of
@@ -29,7 +29,10 @@ from esvio_tpu_torch.events import corners as tcor
 from esvio_tpu_torch.events import sae as tsae
 from esvio_tpu_torch.frontend import lk as tlk
 from esvio_tpu_torch.frontend import pyramid as tpyr
+from esvio_tpu_torch.dist import dryrun
 from esvio_tpu_torch.solver import chol_solve as tchol
+from esvio_tpu_torch.solver import gauss_newton as tgn
+from esvio_tpu_torch.solver import normal_assembly as tna
 
 N = tchol.N
 
@@ -144,8 +147,58 @@ def test_cpu_tensors_take_the_plain_versions():
     pyr_p, pyr_c, pts, valid = _lk_pair_args()
     pair = tlk.lk_track_fb(pyr_p, pyr_c, pts, valid, iters=5)
     assert len(pair) == 4 and pair[0].shape == pts.shape
-    assert [k.launches for k in _kernels.KERNELS] == [0, 0, 0]
+    args = dryrun.make_problem(torch.float32, L_img=8, L_evt=16, device="cpu")
+    for a, b in zip(tgn.assemble_normal_reduced(*args),
+                    tgn.assemble_normal_reduced_plain(*args)):
+        assert torch.equal(a, b)
+    assert [k.launches for k in _kernels.KERNELS] == [0, 0, 0, 0]
     assert all(k._fn is None for k in _kernels.KERNELS)
+
+
+def test_normal_assembly_args_follow_the_source():
+    """K4's pointer array: the wrapper's ARGS are the source's `enum Arg`
+    in its order, and its lane group and partial sizes are the source's."""
+    text = open(_kernels.NORMAL_ASSEMBLY.src_path).read()
+    enum = re.search(r"enum Arg \{([^}]*)\}", text).group(1)
+    names = [n.strip() for n in enum.replace("\n", " ").split(",") if n.strip()]
+    assert names[-1] == "N_ARGS"
+    assert tuple(n[2:] for n in names[:-1]) == tna.ARGS
+    for name, value in (("LANES", tna.LANES), ("NC", tna.NC),
+                        ("ROWS", tna.ROWS)):
+        m = re.search(rf"constexpr int {name} = ([^;]*);", text)
+        assert eval(m.group(1), {"NS": 11}) == value, name
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"), ("float64", "float32"), ("shape", "shapes")])
+def test_normal_assembly_cuda_refuses(case, match):
+    import dataclasses
+    st, bi, be, pre, iv, prior, g = dryrun.make_problem(
+        torch.float64 if case == "float64" else torch.float32, L_img=8,
+        L_evt=16, device="cpu")
+    if case == "shape":
+        be = dataclasses.replace(be, un=be.un[:, :10])
+    with pytest.raises(ValueError, match=match):
+        tna.assemble_cuda(st, bi, be, pre, iv, prior, g)
+    assert _kernels.NORMAL_ASSEMBLY.launches == 0
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_normal_assembly_work_counts_the_tensors_it_moves(batch):
+    """`work`'s bytes are those of every input and output the kernel takes
+    (scratch aside), at one window and at a batch; its FLOP grow with the
+    lanes and the batch."""
+    args = dryrun.make_problem(torch.float32, L_img=8, L_evt=24, batch=batch,
+                               device="cpu")
+    ins, outs, (B, L_img, L_evt) = tna.kernel_tensors(*args)
+    assert set(ins) | set(outs) == set(tna.ARGS)
+    moved = sum(t.numel() * t.element_size() for t in ins.values()) + sum(
+        t.numel() * t.element_size() for n, t in outs.items() if n != "SCRATCH")
+    n_bytes, flop = tna.work(L_img + L_evt, B)
+    assert n_bytes == moved
+    assert outs["SCRATCH"].numel() == B * tna.scratch_floats(L_img + L_evt)
+    assert tna.work(64, B)[1] > flop > 0
+    assert tna.work(32, 2 * B)[1] == 2 * flop
 
 
 @pytest.mark.parametrize("B", [1, 4, 8])

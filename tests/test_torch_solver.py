@@ -15,6 +15,8 @@ Tolerances:
     test_marginalize_old_and_second_new_match for why not its float32
     run; lin and valid exact.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ from esvio_tpu.solver import factors as jfac
 from esvio_tpu.solver import gauss_newton as jgn
 from esvio_tpu.solver import marginalization as jmarg
 from esvio_tpu.solver import window as jwin
+from esvio_tpu_torch.dist import dryrun
 from esvio_tpu_torch.solver import chol_solve as tchol
 from esvio_tpu_torch.solver import factors as tfac
 from esvio_tpu_torch.solver import gauss_newton as tgn
@@ -109,6 +112,73 @@ def test_factor_jacobians_match(rng):
     tr, tJ = tfac.proj22_jac(*(torch.tensor(a) for a in args))
     assert rel_err(tr.numpy(), np.stack(jr)) < 1e-5
     assert rel_err(tJ.numpy(), np.stack(jJ)) < 1e-4
+
+
+def _proj_rows(rng, L, case):
+    """proj22_jac's arguments for L rows of one case."""
+    v = lambda *s, sc=1.0: torch.tensor(np_f32(rng.normal(0, sc, s)))
+    q = lambda: torch.tensor((lambda x: np_f32(
+        x / np.linalg.norm(x, axis=-1, keepdims=True)))(
+            rng.normal(size=(L, 4)) * [4, 1, 1, 1]))
+    inv = np_f32(rng.uniform(1.5e-4, 1e-3, L) if case == "tiny_depth"
+                 else rng.uniform(0.2, 0.5, L))
+    args = [v(L, 3), q(), v(L, 3), q(), v(L, 3, sc=0.1), q(), v(L, 3, sc=0.1),
+            q(), torch.tensor(inv), v(L, sc=0.01), v(L, 2, sc=0.2),
+            v(L, 2, sc=0.1), v(L, sc=0.001), v(L, 2, sc=0.2), v(L, 2, sc=0.1),
+            v(L, sc=0.001)]
+    if case == "mono":          # ex1 := ex0
+        args[6], args[7] = args[4], args[5]
+    if case == "static":        # j := i, the right camera, td_j := td_i
+        args[2], args[3], args[15] = args[0], args[1], args[12]
+        args[13] = args[10] - 0.02
+    return args
+
+
+@pytest.mark.parametrize("case", ["random", "mono", "static", "tiny_depth",
+                                  "masked_lanes", "imu"])
+def test_closed_form_jacobians_match_forward_mode(rng, case):
+    """Kernel K4's closed-form Jacobians (their plain mirrors in
+    factors.py) against the forward-mode ones within 1e-4 relative: rows
+    of the projection factor (random, mono with ex1 := ex0, static-stereo,
+    inverse depth near the gate's 1e-4), a whole book's factor table with
+    masked lanes (inactive, depth invalid, seen once, late start; the
+    Cauchy weights, masks and mono fold applied), and the IMU factor off
+    its linearization biases."""
+    if case == "imu":
+        st, _, _, pre, _, _, g = dryrun.make_problem(torch.float32, device="cpu")
+        x = rng.normal(size=(twin.N_STATES, 4)) * [4, 1, 1, 1]
+        st = dataclasses.replace(
+            st, Q=torch.tensor(np_f32(x / np.linalg.norm(x, axis=-1, keepdims=True))),
+            V=torch.tensor(np_f32(rng.normal(0, 1, (twin.N_STATES, 3)))),
+            Ba=torch.tensor(np_f32(rng.normal(0, 0.05, (twin.N_STATES, 3)))),
+            Bg=torch.tensor(np_f32(rng.normal(0, 0.02, (twin.N_STATES, 3)))))
+        sq = tfac.imu_sqrt_info(pre.covariance)
+        ins = tgn._imu_inputs(st)
+        (r0, J0), (r1, J1) = (f(*ins, pre, g, sq) for f in (
+            tfac.imu_residual_jac, tfac.imu_residual_jac_closed))
+    elif case == "masked_lanes":
+        st, _, book, *_ = dryrun.make_problem(torch.float32, L_evt=32,
+                                              device="cpu")
+        obs = book.obs.clone()
+        obs[4, 1:] = False                 # seen once
+        obs[5, :9] = False                 # starts too late
+        obs[6:, 0] = torch.tensor(rng.random(26) < 0.5)
+        book = dataclasses.replace(
+            book, obs=obs, stereo=obs & torch.tensor(rng.random(obs.shape) < 0.6),
+            active=book.active & (torch.arange(32) != 2),
+            depth_valid=book.depth_valid & (torch.arange(32) != 3),
+            vel=torch.tensor(np_f32(rng.normal(0, 0.1, book.vel.shape))))
+        st = dataclasses.replace(st, td=torch.tensor(0.003))
+        (r0, J0, *_), (r1, J1, *_) = (
+            tgn._proj_factor_table(st, book, 1, 3, 1.0, jac=j)
+            for j in (tfac.proj22_jac, tfac.proj22_jac_closed))
+        assert int((J0 != 0).any(-1).any(-1).sum()) < 32 * 23
+    else:
+        args = _proj_rows(rng, 16, case)
+        (r0, J0), (r1, J1) = (f(*args) for f in (tfac.proj22_jac,
+                                                 tfac.proj22_jac_closed))
+    assert rel_err(r1.numpy(), r0.numpy()) < 1e-4
+    assert rel_err(J1.numpy(), J0.numpy()) < 1e-4
 
 
 def test_assemble_normal_reduced_matches(problem):
