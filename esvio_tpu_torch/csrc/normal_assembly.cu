@@ -8,8 +8,8 @@
 // products: about 1,250 small device operations an assembly.  K4 computes
 // the same (Hpp, Hpl, hll, bp, bl, cost) in two launches, with the
 // Jacobians in closed form (their plain PyTorch mirror is
-// solver/factors.proj22_jac_closed / imu_residual_jac_closed, which the CPU
-// tests hold against the forward-mode ones):
+// tests/assemble_cases.proj22_jac_closed / imu_residual_jac_closed, which the
+// CPU tests hold against the forward-mode ones):
 //
 //   * the projection table: every lane of both books, 23 rows a lane
 //     (11 mono with ex1 := ex0, 11 cross-stereo, 1 static-stereo), the
@@ -329,7 +329,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // ------------------------------------------------------------ IMU factor
 // Factor k (frames k, k+1) unweighted: r (15) and J (15 x 30, row-major,
 // zeroed by the caller) in [pose_i 6 | sb_i 9 | pose_j 6 | sb_j 9], as
-// factors.imu_residual_jac_closed.
+// tests/assemble_cases.imu_residual_jac_closed.
 __device__ void imu_factor(const Args& a, int b, int k, float* r, float* J) {
   const float* P = in<float>(a, A_P, b, NS * 3) + 3 * k;
   const float* Q = in<float>(a, A_Q, b, NS * 4) + 4 * k;

@@ -145,103 +145,3 @@ def proj22_jac(Pi, Qi, Pj, Qj, ex_p0, ex_q0, ex_p1, ex_q1, inv_dep, td,
 def cauchy_weight(r2, c: float = 1.0):
     """IRLS weight √ρ'(s) for Ceres CauchyLoss(c): ρ(s) = c² log(1+s/c²)."""
     return 1.0 / torch.sqrt(1.0 + r2 / (c * c))
-
-
-# ---------------------------------------------------------------------------
-# Closed-form Jacobians: the per-row arithmetic of kernel K4
-# (csrc/normal_assembly.cu), written out in plain PyTorch so that the CPU
-# tests can hold the derivation against the forward-mode Jacobians above.
-# The main path never calls them: on the card K4 computes them itself, on
-# the CPU the assembly takes the forward-mode ones.
-# ---------------------------------------------------------------------------
-
-def _mv3(R, v):
-    return (R @ v[..., None])[..., 0]
-
-
-def _vec_block(M):
-    """The 3×3 vector block of a 4×4 quaternion product matrix."""
-    return M[..., 1:, 1:]
-
-
-def proj22_jac_closed(Pi, Qi, Pj, Qj, ex_p0, ex_q0, ex_p1, ex_q1, inv_dep, td,
-                      pt_i, vel_i, td_i, pt_j, vel_j, td_j):
-    """`proj22_jac` with its Jacobian derived by hand
-    (projectionTwoFrameTwoCamFactor.cpp's): r (..., 2), J (..., 2, 26) in
-    the same column layout.  A rotation block is the derivative along
-    q ⊗ (1, δθ/2), which for a unit quaternion is R·Exp(δθ)."""
-    Ri, Rj, R0, R1 = (lie.quat_to_rot(q) for q in (Qi, Qj, ex_q0, ex_q1))
-    pts_i = _td_point(pt_i, vel_i, td, td_i)
-    pts_j = _td_point(pt_j, vel_j, td, td_j)
-    lam = inv_dep[..., None]
-    cam_i = pts_i / lam
-    imu_i = _mv3(R0, cam_i) + ex_p0
-    w = _mv3(Ri, imu_i) + Pi
-    imu_j = _mv3(Rj.mT, w - Pj)
-    cam_j = _mv3(R1.mT, imu_j - ex_p1)
-    x, y, z = cam_j.unbind(-1)
-    r = PROJ_SQRT_INFO * (cam_j[..., :2] / z[..., None] - pts_j[..., :2])
-    zero = torch.zeros_like(z)
-    red = PROJ_SQRT_INFO * torch.stack([
-        torch.stack([1.0 / z, zero, -x / (z * z)], -1),
-        torch.stack([zero, 1.0 / z, -y / (z * z)], -1)], -2)    # dr/dcam_j
-    d_imu_j = red @ R1.mT                                       # dr/dimu_j
-    d_w = d_imu_j @ Rj.mT                                       # dr/dw
-    d_imu_i = d_w @ Ri                                          # dr/dimu_i
-    d_cam_i = d_imu_i @ R0                                      # dr/dcam_i
-    J_lam = -_mv3(d_cam_i, pts_i) / (lam * lam)
-    J_td = -_mv3(d_cam_i[..., :, :2], vel_i) / lam + PROJ_SQRT_INFO * vel_j
-    J = torch.cat([d_w, -d_imu_i @ lie.skew(imu_i),
-                   -d_w, d_imu_j @ lie.skew(imu_j),
-                   d_imu_i, -d_cam_i @ lie.skew(cam_i),
-                   -d_imu_j, red @ lie.skew(cam_j),
-                   J_lam[..., None], J_td[..., None]], -1)
-    return r, J
-
-
-def imu_residual_jac_closed(Pi, Qi, Vi, Bai, Bgi, Pj, Qj, Vj, Baj, Bgj,
-                            pre_state, g, sqrt_info):
-    """`imu_residual_jac` with its Jacobian derived by hand (imu_factor.h's
-    blocks, but the rotation residual's exactly: its corrected Δq is the
-    unnormalized Δq ⊗ (1, ½ J_q^bg δbg), whose inverse divides by its
-    norm): r (..., 15), J (..., 15, 30), both weighted by sqrt_info."""
-    Jp = pre_state.jacobian
-    dp_dba, dp_dbg = Jp[..., 0:3, 9:12], Jp[..., 0:3, 12:15]
-    dq_dbg = Jp[..., 3:6, 12:15]
-    dv_dba, dv_dbg = Jp[..., 6:9, 9:12], Jp[..., 6:9, 12:15]
-    dba = Bai - pre_state.linearized_ba
-    dbg = Bgi - pre_state.linearized_bg
-    cq = lie.quat_mul(pre_state.delta_q, lie.delta_q(_mv3(dq_dbg, dbg)))
-    cv = pre_state.delta_v + _mv3(dv_dba, dba) + _mv3(dv_dbg, dbg)
-    cp = pre_state.delta_p + _mv3(dp_dba, dba) + _mv3(dp_dbg, dbg)
-    sdt = pre_state.sum_dt[..., None]
-    RiT = lie.quat_to_rot(Qi).mT
-    vp = _mv3(RiT, 0.5 * g * sdt * sdt + Pj - Pi - Vi * sdt)
-    vv = _mv3(RiT, g * sdt + Vj - Vi)
-    A = lie.quat_mul(lie.quat_conj(Qi), Qj)
-    n = torch.sum(cq * cq, -1)[..., None]
-    ic = lie.quat_conj(cq) / n
-    icA = lie.quat_mul(ic, A)
-    r = torch.cat([vp - cp, 2.0 * icA[..., 1:], vv - cv, Baj - Bai,
-                   Bgj - Bgi], -1)
-
-    # d r_q / d bg: dc = G δbg, d(c⁻¹) = conj(dc)/n − c⁻¹ · 2 c·dc / n
-    G = lie.quat_left(pre_state.delta_q)[..., :, 1:] @ dq_dbg * 0.5   # (4, 3)
-    conj = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=cq.dtype,
-                        device=cq.device)
-    dq_bg = ((2.0 / n[..., None]) * (lie.quat_right(A) @ (conj[:, None] * G))
-             - (4.0 / n[..., None]) * icA[..., :, None]
-             * (cq[..., None, :] @ G))[..., 1:, :]
-    eye = torch.eye(3, dtype=cq.dtype, device=cq.device).expand(RiT.shape)
-    O = torch.zeros_like(RiT)
-    rows = [
-        [-RiT, lie.skew(vp), -RiT * sdt[..., None], -dp_dba, -dp_dbg,
-         RiT, O, O, O, O],
-        [O, -_vec_block(lie.quat_left(ic) @ lie.quat_right(A)), O, O, dq_bg,
-         O, _vec_block(lie.quat_left(icA)), O, O, O],
-        [O, lie.skew(vv), -RiT, -dv_dba, -dv_dbg, O, O, RiT, O, O],
-        [O, O, O, -eye, O, O, O, O, eye, O],
-        [O, O, O, O, -eye, O, O, O, O, eye],
-    ]
-    J = torch.cat([torch.cat(row, -1) for row in rows], -2)
-    return _bmv(sqrt_info, r), sqrt_info @ J

@@ -121,17 +121,29 @@ def port_general(jax_esvio):
 
 
 def test_synth_np_reproduces_the_esvio_golden_sequence(jax_esvio, port_fused):
-    """tests/synth_np.py renders the ESVIO golden's frames (and events) as
-    tests/synth.py does, bit for bit."""
+    """tests/synth_np.py renders the ESVIO golden's frames, events, IMU
+    and ground truth as tests/synth.py does, bit for bit.  Frames draw
+    nothing from the rng, so this covers the ESIO golden's events, IMU and
+    ground truth over all 1.6 s too (test_torch_pipeline.py's and
+    test_torch_pipeline_port.py's JAX runs take synth_np's)."""
     js, ts = jax_esvio[4], port_fused[4]
+
+    def same(a, b, what):
+        assert a.dtype == b.dtype and np.array_equal(a, b), what
+
     for side in ("images_left", "images_right"):
         (jt, jf), (tt, tf) = getattr(js, side), getattr(ts, side)
-        assert np.array_equal(jt, tt) and len(jt) == 24
-        assert jf.dtype == tf.dtype and np.array_equal(jf, tf), side
+        assert len(jt) == 24
+        same(jt, tt, side)
+        same(jf, tf, side)
     for side in ("events_left", "events_right"):
         for f in ("t", "x", "y", "p"):
-            assert np.array_equal(getattr(getattr(js, side), f),
-                                  getattr(getattr(ts, side), f)), (side, f)
+            same(getattr(getattr(js, side), f), getattr(getattr(ts, side), f),
+                 (side, f))
+    for f in ("t", "acc", "gyr"):
+        same(getattr(js.imu, f), getattr(ts.imu, f), ("imu", f))
+    for a, b in zip(js.ground_truth, ts.ground_truth):
+        same(a, b, "ground_truth")
 
 
 def test_port_fused_backend_on_jax_packets(jax_esvio, port_fused):

@@ -3,9 +3,10 @@ keyframes from the prepared left frame): the port's pipeline against the
 JAX pipeline on the loop sequence of tests/test_e2e_loops.py with stereo
 frames (synth_np.loop_pipeline(mode="esvio")), on the CPU.
 
-One JAX run records both trackers' packets, every keyframe handed to its
-loop closer, the first relocalization match the closer hands the estimator
-and the estimator's relocalization solve of it.  The port's pipeline then
+One JAX run, on the sequence as synth_np renders it
+(torch_parity.np_render_for_jax), records both trackers' packets, every
+keyframe handed to its loop closer, the first relocalization match the
+closer hands the estimator and the estimator's relocalization solve of it.  The port's pipeline then
 runs on those packets (its trackers replaced by the recording).  Both back
 ends take the general path (fused=False), the JAX one with its
 marginalization's eigendecompositions in float64 as the port takes them
@@ -32,7 +33,7 @@ after RUN_TICKS ticks of the 54.
 import numpy as np
 import pytest
 
-from torch_parity import jax_marginalization_f64, to_torch
+from torch_parity import jax_marginalization_f64, np_render_for_jax, to_torch
 from synth_np import LOOP_ACC_BIAS, LOOP_GYR_BIAS, loop_pipeline
 
 SKIP_RECENT = 12          # tests/test_e2e_loops.py's, the revisit cadence
@@ -109,14 +110,13 @@ def _loop_key(tick_info):
 @pytest.fixture(scope="module")
 def jax_run():
     import jax
-    import synth
     from esvio_tpu.apps import pipeline as jpipe
     from esvio_tpu.core import camera
     from esvio_tpu.frontend import tracker as trk
     from esvio_tpu.io.config import SystemConfig
     from esvio_tpu.vio import estimator as est_mod
     H, W, F, B = 120, 160, 200.0, 0.10
-    seq, _, _ = synth.planar_vio_sequence_rot(
+    seq, _, _ = np_render_for_jax(
         np.random.default_rng(0), H=H, W=W, focal=F, plane_z=4.0, baseline=B,
         duration=3.6, texture="smooth", gyr_bias=LOOP_GYR_BIAS,
         acc_bias=LOOP_ACC_BIAS, frame_hz=15)
@@ -182,7 +182,10 @@ def port_run(jax_run):
 
 
 def test_esvio_loop_branch_matches_jax(jax_run, port_run):
-    # the same frames (synth_np renders tests/synth.py's, bit for bit)
+    # both sides render with synth_np, so this checks that the two fixtures
+    # pass the renderer the same arguments, not the renderer itself;
+    # test_torch_no_jax.py holds synth_np's frames, events and IMU to
+    # tests/synth.py's bit for bit over the sequence's first 0.3 s only
     for side in ("images_left", "images_right"):
         js, ts = getattr(jax_run["seq"], side), getattr(port_run["seq"], side)
         np.testing.assert_array_equal(ts[0], js[0])

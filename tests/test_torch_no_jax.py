@@ -14,7 +14,7 @@ and the chessboard detector run, a one-process sharded window solve runs,
 and chip_smoke and chip_ab import (without running).  Nothing of jax or esvio_tpu may be
 loaded along the way.  tests/synth_np.py, which these drives use, is held
 bit for bit against tests/synth.py on the loop sequence's smooth texture
-with IMU biases and noise."""
+with IMU biases and noise and stereo frames."""
 import os
 import subprocess
 import sys
@@ -176,24 +176,33 @@ def test_port_imports_and_runs_without_jax():
 
 def test_synth_np_reproduces_the_loop_sequence():
     """The smooth texture (bicubic value noise, the contrast event model),
-    the IMU biases and the IMU noise of tests/synth.py, bit for bit, on
-    0.3 s of the loop sequence."""
+    the IMU biases, the IMU noise and the stereo frames of tests/synth.py,
+    bit for bit, on 0.3 s of the loop sequence: every option
+    test_torch_esvio_loops.py's JAX run renders with synth_np."""
     import numpy as np
     import synth
     import synth_np
     kw = dict(duration=0.3, texture="smooth",
               gyr_bias=synth_np.LOOP_GYR_BIAS, acc_bias=synth_np.LOOP_ACC_BIAS,
-              gyr_n=0.01, acc_n=0.05)
+              gyr_n=0.01, acc_n=0.05, frame_hz=15)
     a, ta, pa = synth.planar_vio_sequence_rot(
         np.random.default_rng(0), imu_noise_rng=np.random.default_rng(5), **kw)
     b, tb, pb = synth_np.planar_vio_sequence_rot(
         np.random.default_rng(0), imu_noise_rng=np.random.default_rng(5), **kw)
+
+    def same(x, y, what):
+        assert x.dtype == y.dtype, what
+        np.testing.assert_array_equal(x, y, err_msg=str(what))
+
     for side in ("events_left", "events_right"):
         for f in ("t", "x", "y", "p"):
-            np.testing.assert_array_equal(getattr(getattr(b, side), f),
-                                          getattr(getattr(a, side), f))
+            same(getattr(getattr(b, side), f), getattr(getattr(a, side), f),
+                 (side, f))
     for f in ("t", "acc", "gyr"):
-        np.testing.assert_array_equal(getattr(b.imu, f), getattr(a.imu, f))
-    np.testing.assert_array_equal(tb, ta)
-    np.testing.assert_array_equal(pb, pa)
-    assert len(a.events_left.t) > 1000
+        same(getattr(b.imu, f), getattr(a.imu, f), ("imu", f))
+    for side in ("images_left", "images_right", "ground_truth"):
+        for x, y in zip(getattr(b, side), getattr(a, side)):
+            same(x, y, side)
+    same(tb, ta, "gt_t")
+    same(pb, pa, "gt_P")
+    assert len(a.events_left.t) > 1000 and len(a.images_left[0]) == 4

@@ -25,7 +25,7 @@ import os
 import numpy as np
 import pytest
 
-from torch_parity import jax_marginalization_f64, to_torch
+from torch_parity import jax_marginalization_f64, np_render_for_jax, to_torch
 from synth_np import GOLDEN, golden_gates, vio_pipeline
 
 GOLDEN_NPZ = os.path.join(os.path.dirname(__file__), "golden",
@@ -54,9 +54,10 @@ def test_synth_np_reproduces_the_golden_sequence():
 @pytest.fixture(scope="module")
 def jax_golden():
     """The JAX pipeline's general path (fused=False) over the golden run,
-    its marginalization in float64: (result, the tracker packet of each
-    tick)."""
+    its marginalization in float64, on the golden sequence as synth_np
+    renders it: (result, the tracker packet of each tick)."""
     import jax
+    import synth
     import esvio_tpu.apps.pipeline as jpipe
     from test_golden_trace import run_golden_pipeline
 
@@ -76,6 +77,7 @@ def jax_golden():
     with pytest.MonkeyPatch.context() as mp, jax_marginalization_f64():
         mp.setattr(jpipe, "Pipeline", Pipeline)
         mp.setattr(jpipe.trk, "track_event_stereo", recording)
+        mp.setattr(synth, "planar_vio_sequence_rot", np_render_for_jax)
         jres, _, _ = run_golden_pipeline("esio")
     return jres, packets
 

@@ -27,7 +27,7 @@ import os
 import numpy as np
 import pytest
 
-from torch_parity import jax_marginalization_f64
+from torch_parity import jax_marginalization_f64, np_render_for_jax
 from synth_np import GOLDEN, golden_gates, vio_pipeline
 
 GOLDEN_NPZ = os.path.join(os.path.dirname(__file__), "golden",
@@ -71,7 +71,9 @@ def test_port_pipeline_meets_golden_gates(port_golden):
 def test_jax_backend_on_port_packets_lands_where_the_port_does(port_golden):
     """The JAX pipeline's general path on the port tracker's packets follows
     the port's own run, gauge included: the distance of the port's full run
-    from the golden comes from its packets, not from its back end."""
+    from the golden comes from its packets, not from its back end.  The JAX
+    run takes the golden sequence as synth_np renders it."""
+    import synth
     import esvio_tpu.apps.pipeline as jpipe
     from test_golden_trace import run_golden_pipeline
     from torch_parity import to_jax
@@ -88,6 +90,7 @@ def test_jax_backend_on_port_packets_lands_where_the_port_does(port_golden):
         mp.setattr(jpipe.trk, "track_event_stereo",
                    lambda cfg, cam_l, cam_r, state, ch_l, ch_r, t:
                    (state, next(packets)))
+        mp.setattr(synth, "planar_vio_sequence_rot", np_render_for_jax)
         jres, _, _ = run_golden_pipeline("esio")
     np.testing.assert_allclose(jres.stamps, tres.stamps, rtol=0, atol=1e-9)
     dev = np.linalg.norm(np.asarray(jres.P) - np.asarray(tres.P), axis=1)

@@ -22,6 +22,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import assemble_cases as ac
 from torch_parity import make_problem, np_f32, rel_err
 from esvio_tpu.solver import chol_pallas
 from esvio_tpu.solver import factors as jfac
@@ -138,12 +139,12 @@ def _proj_rows(rng, L, case):
                                   "masked_lanes", "imu"])
 def test_closed_form_jacobians_match_forward_mode(rng, case):
     """Kernel K4's closed-form Jacobians (their plain mirrors in
-    factors.py) against the forward-mode ones within 1e-4 relative: rows
-    of the projection factor (random, mono with ex1 := ex0, static-stereo,
-    inverse depth near the gate's 1e-4), a whole book's factor table with
-    masked lanes (inactive, depth invalid, seen once, late start; the
-    Cauchy weights, masks and mono fold applied), and the IMU factor off
-    its linearization biases."""
+    tests/assemble_cases.py) against the forward-mode ones within 1e-4
+    relative: rows of the projection factor (random, mono with
+    ex1 := ex0, static-stereo, inverse depth near the gate's 1e-4), a
+    whole book's factor table with masked lanes (inactive, depth invalid,
+    seen once, late start; the Cauchy weights, masks and mono fold
+    applied), and the IMU factor off its linearization biases."""
     if case == "imu":
         st, _, _, pre, _, _, g = dryrun.make_problem(torch.float32, device="cpu")
         x = rng.normal(size=(twin.N_STATES, 4)) * [4, 1, 1, 1]
@@ -155,7 +156,7 @@ def test_closed_form_jacobians_match_forward_mode(rng, case):
         sq = tfac.imu_sqrt_info(pre.covariance)
         ins = tgn._imu_inputs(st)
         (r0, J0), (r1, J1) = (f(*ins, pre, g, sq) for f in (
-            tfac.imu_residual_jac, tfac.imu_residual_jac_closed))
+            tfac.imu_residual_jac, ac.imu_residual_jac_closed))
     elif case == "masked_lanes":
         st, _, book, *_ = dryrun.make_problem(torch.float32, L_evt=32,
                                               device="cpu")
@@ -171,12 +172,12 @@ def test_closed_form_jacobians_match_forward_mode(rng, case):
         st = dataclasses.replace(st, td=torch.tensor(0.003))
         (r0, J0, *_), (r1, J1, *_) = (
             tgn._proj_factor_table(st, book, 1, 3, 1.0, jac=j)
-            for j in (tfac.proj22_jac, tfac.proj22_jac_closed))
+            for j in (tfac.proj22_jac, ac.proj22_jac_closed))
         assert int((J0 != 0).any(-1).any(-1).sum()) < 32 * 23
     else:
         args = _proj_rows(rng, 16, case)
         (r0, J0), (r1, J1) = (f(*args) for f in (tfac.proj22_jac,
-                                                 tfac.proj22_jac_closed))
+                                                 ac.proj22_jac_closed))
     assert rel_err(r1.numpy(), r0.numpy()) < 1e-4
     assert rel_err(J1.numpy(), J0.numpy()) < 1e-4
 

@@ -10,7 +10,8 @@ ImageTrackerState (with their PRNG keys), FeaturePacket, WindowState,
 FeatureBook, Prior, Preintegrated, ImuParams, and CameraModel of every
 kind (`camera_to_torch`, `camera_to_jax`); `window_args_to_torch`
 and `window_args_to_jax` convert a window solve's arguments, batched
-or not.
+or not.  `np_render_for_jax` renders a synthetic sequence for the JAX
+pipeline with the numpy renderer.
 """
 import contextlib
 import dataclasses
@@ -90,6 +91,27 @@ def _to_jax_nested(v):
     name = type(v).__name__
     cls = {"SAEState": jsae.SAEState, "WindowState": jwin.WindowState}[name]
     return to_jax(v, cls)
+
+
+def np_render_for_jax(*a, **kw):
+    """tests/synth.planar_vio_sequence_rot's sequence, rendered by
+    synth_np.planar_vio_sequence_rot (the same arrays bit for bit, which
+    test_torch_pipeline.py, test_torch_esvio.py and test_torch_no_jax.py
+    hold it to) and handed to the JAX package's SequenceData: a stand-in for
+    the JAX renderer with its arguments and returns (seq, gt_t, gt_P).  The
+    two packages' EventStream, ImuStream and SequenceData hold the same
+    numpy fields, so the sequence converts field by field."""
+    import synth_np
+    from esvio_tpu.io import datasets as jds
+
+    def conv(v):
+        if not dataclasses.is_dataclass(v):
+            return v
+        return getattr(jds, type(v).__name__)(
+            **{f.name: conv(getattr(v, f.name)) for f in dataclasses.fields(v)})
+
+    seq, gt_t, gt_P = synth_np.planar_vio_sequence_rot(*a, **kw)
+    return conv(seq), gt_t, gt_P
 
 
 def camera_pair(fx, fy, cx, cy, width, height, dist=(0.0, 0.0, 0.0, 0.0),
